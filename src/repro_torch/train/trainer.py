@@ -1,0 +1,201 @@
+"""Vision training, the paper's own experiments (Table 1): port of the vision
+half of ``repro.train.trainer``.
+
+``make_vision_train_step`` is one step of the paper's recipe: forward with
+(ghost) batch-norm state threading, backward, then momentum SGD with
+clipping, noise and the regime's LR. ``train_vision`` drives it over a
+dataset. Checkpoint/resume, meshes, batch schedules and tracing are not
+ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import tree
+from repro_torch.configs.paper_models import VisionModelConfig
+from repro_torch.core.diffusion import DiffusionTracker
+from repro_torch.core.large_batch import LargeBatchConfig
+from repro_torch.core.regime import Regime
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.metrics import MetricsLogger
+from repro_torch.optim import sgd
+
+Params = Any
+
+
+def make_vision_loss_fn(model_apply: Callable, cfg: VisionModelConfig,
+                        lb: LargeBatchConfig, *,
+                        use_kernels: bool = False) -> Callable:
+    """(params, bn_state, x, y) -> (nll, (new_bn_state, acc))."""
+
+    def loss_fn(p: Params, bn_state: Params, x: torch.Tensor,
+                y: torch.Tensor):
+        logits, new_state = model_apply(
+            p, bn_state, cfg, x, training=True,
+            ghost_batch_size=lb.ghost_batch_size,
+            use_gbn=lb.use_gbn, use_kernels=use_kernels)
+        logp = F.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(1, y.long()[:, None]).mean()
+        acc = (logits.argmax(-1) == y).float().mean()
+        return nll, (new_state, acc)
+
+    return loss_fn
+
+
+def make_vision_train_step(model_apply: Callable, cfg: VisionModelConfig,
+                           lb: LargeBatchConfig, regime: Regime,
+                           *, weight_decay: float = 5e-4,
+                           use_kernels: bool = False) -> Callable:
+    """(params, bn_state, opt_state, x, y, step, generator=None) ->
+    (params, bn_state, opt_state, metrics). ``lb.use_gbn`` selects ghost
+    vs full-batch statistics; ``generator`` feeds the gradient noise when
+    the config has any."""
+    sigma = lb.effective_noise_sigma()
+    loss_fn = make_vision_loss_fn(model_apply, cfg, lb,
+                                  use_kernels=use_kernels)
+
+    def train_step(params: Params, bn_state: Params,
+                   opt_state: sgd.SGDState, x: torch.Tensor,
+                   y: torch.Tensor, step: int,
+                   generator: Optional[torch.Generator] = None):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree.leaves(params)]
+        loss, (new_state, acc) = loss_fn(tree.unflatten(params, leaves),
+                                         bn_state, x, y)
+        grads = torch.autograd.grad(loss, leaves)
+        lr = regime.lr_at(step).to(x.device)
+        params2, opt_state2, m = sgd.update(
+            tree.unflatten(params, list(grads)), opt_state,
+            tree.unflatten(params, [p.detach() for p in leaves]),
+            lr=lr, momentum=lb.momentum, weight_decay=weight_decay,
+            grad_clip=lb.grad_clip, noise_sigma=sigma, generator=generator)
+        return params2, new_state, opt_state2, {
+            "loss": loss.detach(), "acc": acc, "lr": lr, **m}
+
+    return train_step
+
+
+def make_vision_eval(model_apply: Callable, cfg: VisionModelConfig
+                     ) -> Callable:
+    """(params, bn_state, x, y, batch=512) -> accuracy with the running
+    statistics; one host transfer at the end."""
+
+    @torch.no_grad()
+    def evaluate(params, bn_state, x: torch.Tensor, y: torch.Tensor,
+                 batch: int = 512) -> float:
+        correct = torch.zeros((), dtype=torch.long, device=x.device)
+        for i in range(0, x.shape[0], batch):
+            logits, _ = model_apply(params, bn_state, cfg, x[i:i + batch],
+                                    training=False)
+            correct += (logits.argmax(-1) == y[i:i + batch]).sum()
+        return int(correct) / x.shape[0]
+
+    return evaluate
+
+
+def _stream_seed(seed: int, stream: int, i: int) -> int:
+    """Independent seed per (run seed, stream, index): init, noise and
+    shuffling never share a stream, and each step's draw is a pure function
+    of its index."""
+    return int(np.random.SeedSequence([seed, stream, i]).generate_state(1)[0])
+
+
+_NOISE, _SHUFFLE = 1, 2
+
+
+def _epoch_perm(seed: int, epoch: int, n: int, device: torch.device
+                ) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(_stream_seed(seed, _SHUFFLE, epoch))
+    return torch.randperm(n, generator=gen).to(device)
+
+
+def _record_diffusion(step: int, total_steps: int, every: int) -> bool:
+    if every > 0:
+        return step % every == 0
+    # auto cadence: dense early (the log-t regime), sparse after
+    return step < 32 or step % max(1, total_steps // 64) == 0
+
+
+def _host_metrics(m: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Every scalar metric of a step in one device-to-host transfer."""
+    keys = list(m)
+    vals: List[float] = torch.stack(
+        [m[k].detach().float().reshape(()) for k in keys]).tolist()
+    return dict(zip(keys, vals))
+
+
+def train_vision(model_fns, cfg: VisionModelConfig, data,
+                 lb: LargeBatchConfig, regime: Regime, *, seed: int = 0,
+                 eval_every: int = 0, track_diffusion: bool = True,
+                 diffusion_every: int = 0,
+                 log_fn: Optional[Callable[[str], None]] = None,
+                 use_kernels: bool = False,
+                 weight_decay: float = 5e-4,
+                 device: DeviceLike = None) -> Dict[str, Any]:
+    """Full training run; returns final/best accuracy + diffusion trace.
+
+    Runs on the card unless ``device="cpu"``. The dataset moves to the
+    device once and batches are gathered there. ``use_kernels=True`` trains
+    through the CUDA GBN kernel pair (on the CPU: its plain version).
+    """
+    dev = resolve_device(device)
+    init_fn, apply_fn = model_fns
+    params, bn_state = init_fn(seed, cfg, dev)
+    opt_state = sgd.init(params)
+    tracker = DiffusionTracker(params) if track_diffusion else None
+    logger = MetricsLogger()
+    step_fn = make_vision_train_step(apply_fn, cfg, lb, regime,
+                                     use_kernels=use_kernels,
+                                     weight_decay=weight_decay)
+    evaluate = make_vision_eval(apply_fn, cfg)
+    noise_gen = (torch.Generator(device=dev)
+                 if lb.effective_noise_sigma() > 0 else None)
+
+    x_tr = torch.as_tensor(data.x_train, device=dev)
+    y_tr = torch.as_tensor(data.y_train, device=dev).long()
+    x_te = torch.as_tensor(data.x_test, device=dev)
+    y_te = torch.as_tensor(data.y_test, device=dev).long()
+    n = x_tr.shape[0]
+    step = epoch = cursor = 0
+    perm = _epoch_perm(seed, epoch, n, dev)
+    best = 0.0
+    while step < regime.total_steps:
+        b = min(lb.batch_size, n)
+        if cursor + b > n:
+            epoch += 1
+            cursor = 0
+            perm = _epoch_perm(seed, epoch, n, dev)
+        idx = perm[cursor:cursor + b]
+        cursor += b
+        if noise_gen is not None:
+            noise_gen.manual_seed(_stream_seed(seed, _NOISE, step))
+        params, bn_state, opt_state, m = step_fn(
+            params, bn_state, opt_state, x_tr[idx], y_tr[idx], step,
+            noise_gen)
+        if tracker is not None and _record_diffusion(
+                step, regime.total_steps, diffusion_every):
+            tracker.record(step + 1, params)
+        if eval_every and step % eval_every == 0:
+            acc = evaluate(params, bn_state, x_te, y_te)
+            mh = _host_metrics(m)
+            logger.log(step, val_acc=acc, train_loss=mh["loss"], lr=mh["lr"])
+            best = max(best, acc)
+            if log_fn:
+                log_fn(f"step {step:5d} loss {mh['loss']:.4f} "
+                       f"val_acc {acc:.4f} lr {mh['lr']:.4f}")
+        step += 1
+    final = evaluate(params, bn_state, x_te, y_te)
+    train_acc = evaluate(params, bn_state, x_tr[:2048], y_tr[:2048])
+    if tracker is not None:
+        logger.set_series("distance", tracker.steps, tracker.distances)
+    out = {"final_acc": final, "best_acc": max(best, final),
+           "train_acc": train_acc, "history": logger.to_history(),
+           "metrics": logger, "steps": step}
+    if tracker is not None:
+        out["log_fit"] = tracker.log_fit(burn_in=2)
+        out["power_fit"] = tracker.power_fit(burn_in=2)
+    return out
