@@ -1,0 +1,27 @@
+"""The configurations the port can run, by name: the decoder models whose
+path is ported (``qwen3-1.7b``, and ``<name>-reduced`` for its CPU-smoke
+variant) and the paper's vision models."""
+from __future__ import annotations
+
+from typing import Dict, List, Union
+
+from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.paper_models import PAPER_MODELS, VisionModelConfig
+
+_ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (qwen3_1_7b.CONFIG,)}
+
+
+def get_config(name: str) -> Union[ModelConfig, VisionModelConfig]:
+    if name.endswith("-reduced") and name[:-len("-reduced")] in _ARCHS:
+        return _ARCHS[name[:-len("-reduced")]].reduced()
+    if name in _ARCHS:
+        return _ARCHS[name]
+    if name in PAPER_MODELS:
+        return PAPER_MODELS[name]
+    raise KeyError(f"unknown configuration {name!r}; available: "
+                   f"{list_configs()}")
+
+
+def list_configs() -> List[str]:
+    return sorted(_ARCHS) + sorted(PAPER_MODELS)

@@ -1,9 +1,15 @@
 """Move parameter trees between the JAX package's layout and the port's.
 
-Trees are nested dicts and lists. The only 4-D leaves are convolution
-weights: HWIO in the reference, OIHW here. Dense weights stay (din, dout).
-Running BN state (``mu_run``, ``var_run``, ``initialized``) and optimizer
-momentum convert leaf by leaf the same way.
+Trees are nested dicts and lists.
+
+- Vision models (``to_torch``/``to_numpy``): the only 4-D leaves are
+  convolution weights, HWIO in the reference and OIHW here. Dense weights
+  stay (din, dout). Running BN state (``mu_run``, ``var_run``,
+  ``initialized``) and optimizer momentum convert leaf by leaf the same way.
+- Decoder models (``lm_to_torch``/``lm_to_numpy``): no leaf changes layout.
+  The reference stacks each body slot's layers on a leading
+  ``body_repeats`` axis (it scans over them); the port holds a list of
+  per-layer trees. The same holds for KV caches.
 """
 from __future__ import annotations
 
@@ -13,7 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+
+_STACK = {"head", "body", "tail"}          # the keys of a block stack
 
 
 def to_torch(np_tree: Any, device: DeviceLike = None) -> Any:
@@ -37,3 +46,71 @@ def to_numpy(torch_tree: Any) -> Any:
         return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a   # OIHW -> HWIO
 
     return tree.map(one, torch_tree)
+
+
+def _leaf_to_torch(a: Any, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # ml_dtypes, as jax hands it out
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(dev)
+
+
+def lm_to_torch(np_tree: Any, cfg: ModelConfig, device: DeviceLike = None
+                ) -> Any:
+    """A decoder's parameters or caches in the reference's layout (numpy,
+    e.g. ``jax.device_get(repro.models.transformer.init_params(...))``) ->
+    the port's tree of tensors on ``device``. Every block stack (a dict of
+    ``head``/``body``/``tail``) has its body slots unstacked into lists of
+    ``cfg.body_repeats`` per-layer trees. Leaves keep their layout."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            if set(t) == _STACK:
+                return {"head": [walk(x) for x in t["head"]],
+                        "body": [unstack(x) for x in t["body"]],
+                        "tail": [walk(x) for x in t["tail"]]}
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(x) for x in t]
+        return _leaf_to_torch(t, dev)
+
+    def unstack(slot):
+        R = cfg.body_repeats
+        for a in tree.leaves(slot):
+            if np.shape(a)[:1] != (R,):
+                raise ValueError(f"body leaf of shape {np.shape(a)} has no "
+                                 f"leading body_repeats={R} axis")
+        return [walk(tree.map(lambda a, i=i: np.asarray(a)[i], slot))
+                for i in range(R)]
+
+    return walk(np_tree)
+
+
+def lm_to_numpy(torch_tree: Any) -> Any:
+    """The port's decoder tree (parameters or caches) -> numpy in the
+    reference's layout: body layers stacked again on a leading axis. bf16
+    leaves come back as float32 (numpy has no bfloat16)."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def walk(t):
+        if isinstance(t, dict):
+            if set(t) == _STACK:
+                return {"head": [walk(x) for x in t["head"]],
+                        "body": [stack(x) for x in t["body"]],
+                        "tail": [walk(x) for x in t["tail"]]}
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(x) for x in t]
+        return leaf(t)
+
+    def stack(layers):
+        per_layer = [walk(x) for x in layers]
+        return tree.map(lambda *xs: np.stack(xs), *per_layer)
+
+    return walk(torch_tree)

@@ -2,10 +2,11 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with :mod:`ctypes`. Libraries are named by
-a hash of their source and flags and written into ``_build/`` beside this
-file (ignored by git), so a changed source is rebuilt and an unchanged one
-is built once per checkout. Sources are compiled in parallel, one ``nvcc``
-each. A missing ``nvcc`` or a failed compile raises.
+a hash of their source, the shared headers (``*.cuh``) and the flags, and
+written into ``_build/`` beside this file (ignored by git), so a changed
+source is rebuilt and an unchanged one is built once per checkout. Sources
+are compiled in parallel, one ``nvcc`` each. A missing ``nvcc`` or a failed
+compile raises.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
-SOURCES = ("gbn.cu",)
+SOURCES = ("gbn.cu", "rmsnorm_residual.cu", "swiglu.cu",
+           "flash_attention.cu", "flash_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +50,8 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # included by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

@@ -18,13 +18,13 @@ or raises. ``launches`` counts the kernel launches of each wrapper.
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import launch as L
+from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
@@ -73,52 +73,27 @@ def geometry(G: int, R: int, C: int, *, aligned: bool = True) -> Geometry:
     return Geometry(vec, threads, chunk_rows, -(-R // chunk_rows))
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_GEOM = [_I] * 7 + [_P]       # G, R, C, chunk_rows, nchunks, vec, threads, stream
+_GEOM = [L.I] * 7 + [L.P]    # G, R, C, chunk_rows, nchunks, vec, threads, stream
 _SIGNATURES = {
-    "gbn_fwd_stats": [_P] * 5 + _GEOM,
-    "gbn_normalize": [_P] * 5 + [ctypes.c_float, _P] + _GEOM,
-    "gbn_bwd_stats": [_P] * 8 + _GEOM,
-    "gbn_bwd_dx": [_P] * 7 + _GEOM,
+    "gbn_fwd_stats": [L.P] * 5 + _GEOM,
+    "gbn_normalize": [L.P] * 5 + [L.F, L.P] + _GEOM,
+    "gbn_bwd_stats": [L.P] * 8 + _GEOM,
+    "gbn_bwd_dx": [L.P] * 7 + _GEOM,
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("gbn.cu")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def _lib():
+    return L.bind("gbn.cu", _SIGNATURES)
 
 
 def _check(name: str, t: Tensor, shape: Tuple[int, ...],
            device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _call(fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed to launch: cudaError {err}")
+    L.check(name, t, shape, device, torch.float32)
 
 
 def _launch_args(g: Geometry, G: int, R: int, C: int, device: torch.device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return (G, R, C, g.chunk_rows, g.nchunks, g.vec, g.threads, stream)
-
-
-def _aligned(*ts: Tensor) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in ts)
+    return (G, R, C, g.chunk_rows, g.nchunks, g.vec, g.threads,
+            L.stream(device))
 
 
 def gbn_forward(xg: Tensor, gamma: Tensor, beta: Tensor, *,
@@ -131,7 +106,7 @@ def gbn_forward(xg: Tensor, gamma: Tensor, beta: Tensor, *,
     _check("xg", xg, (G, R, C), dev)
     _check("gamma", gamma, (C,), dev)
     _check("beta", beta, (C,), dev)
-    g = geometry(G, R, C, aligned=_aligned(xg))
+    g = geometry(G, R, C, aligned=L.aligned(xg))
     y = torch.empty_like(xg)
     mu = torch.empty((G, C), device=dev, dtype=torch.float32)
     var = torch.empty_like(mu)
@@ -140,9 +115,9 @@ def gbn_forward(xg: Tensor, gamma: Tensor, beta: Tensor, *,
     lib = _lib()
     with torch.cuda.device(dev):
         tail = _launch_args(g, G, R, C, dev)
-        _call(lib.gbn_fwd_stats, xg.data_ptr(), pmean.data_ptr(),
+        L.call(lib.gbn_fwd_stats, xg.data_ptr(), pmean.data_ptr(),
               pm2.data_ptr(), mu.data_ptr(), var.data_ptr(), *tail)
-        _call(lib.gbn_normalize, xg.data_ptr(), mu.data_ptr(),
+        L.call(lib.gbn_normalize, xg.data_ptr(), mu.data_ptr(),
               var.data_ptr(), gamma.data_ptr(), beta.data_ptr(), eps,
               y.data_ptr(), *tail)
     launches["gbn_forward"] += 1
@@ -165,7 +140,7 @@ def gbn_backward(xg: Tensor, gamma: Tensor, mu: Tensor, var: Tensor,
     _check("gamma", gamma, (C,), dev)
     for name, t in (("mu", mu), ("var", var), ("dmu", dmu), ("dvar", dvar)):
         _check(name, t, (G, C), dev)
-    g = geometry(G, R, C, aligned=_aligned(xg, dy))
+    g = geometry(G, R, C, aligned=L.aligned(xg, dy))
     rstd = torch.rsqrt(var + eps)
     sdy = torch.empty((G, C), device=dev, dtype=torch.float32)
     sdyxh = torch.empty_like(sdy)
@@ -175,7 +150,7 @@ def gbn_backward(xg: Tensor, gamma: Tensor, mu: Tensor, var: Tensor,
     lib = _lib()
     with torch.cuda.device(dev):
         tail = _launch_args(g, G, R, C, dev)
-        _call(lib.gbn_bwd_stats, xg.data_ptr(), dy.data_ptr(), mu.data_ptr(),
+        L.call(lib.gbn_bwd_stats, xg.data_ptr(), dy.data_ptr(), mu.data_ptr(),
               rstd.data_ptr(), psdy.data_ptr(), psdyxh.data_ptr(),
               sdy.data_ptr(), sdyxh.data_ptr(), *tail)
         # (G, C) glue, as the JAX package keeps it outside Pallas: fold the
@@ -185,7 +160,7 @@ def gbn_backward(xg: Tensor, gamma: Tensor, mu: Tensor, var: Tensor,
         c1 = (gamma * rstd).contiguous()
         c2 = (2.0 * gvar / R).contiguous()
         c3 = (gmu / R).contiguous()
-        _call(lib.gbn_bwd_dx, xg.data_ptr(), dy.data_ptr(), mu.data_ptr(),
+        L.call(lib.gbn_bwd_dx, xg.data_ptr(), dy.data_ptr(), mu.data_ptr(),
               c1.data_ptr(), c2.data_ptr(), c3.data_ptr(), dx.data_ptr(),
               *tail)
     launches["gbn_backward"] += 1

@@ -1,14 +1,26 @@
-"""Plain PyTorch versions of the GBN kernels: the CPU path of the wrappers in
-:mod:`repro_torch.kernels.gbn`, and what ``chip_smoke.py`` holds the CUDA
-kernels to on the card. Mirrors ``repro.kernels.ref.gbn_ref`` /
-``gbn_vjp_ref`` (two-pass, biased variance)."""
+"""Plain PyTorch versions of the port's kernels: the CPU path of each
+wrapper, and what ``chip_smoke.py`` holds each CUDA kernel to on the card.
+
+- GBN: mirrors ``repro.kernels.ref.gbn_ref`` / ``gbn_vjp_ref`` (two-pass,
+  biased variance).
+- ``rmsnorm_residual_ref`` and ``swiglu_ref`` mirror their ``repro`` twins
+  op for op, in the input dtype.
+- ``attention_ref`` and ``flash_decode_ref`` compute in f32 as the kernels
+  do (``repro``'s attention oracle forms bf16 logits; in f32 the two agree).
+  A query row that sees no key (a left-pad row of a ragged prompt) is
+  defined as 0 here and in the kernels, where the JAX oracle returns the
+  mean of V; such rows are masked out of every later attention.
+"""
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
+NEG_INF = -1e30          # the masked logit, as in ``repro.kernels``
 
 
 def gbn_ref(xg: Tensor, gamma: Tensor, beta: Tensor, *, eps: float = 1e-5
@@ -55,3 +67,135 @@ def gbn_vjp_ref(xg: Tensor, gamma: Tensor, beta: Tensor,
     _, mu, var = gbn_ref(xg, gamma, beta, eps=eps)
     dx, dgamma, dbeta = gbn_backward_ref(xg, gamma, mu, var, *cts, eps=eps)
     return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused rmsnorm + residual, fused SwiGLU
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_residual_ref(x: Tensor, r: Tensor, scale: Tensor,
+                         eps: float = 1e-6) -> Tuple[Tensor, Tensor]:
+    """``s = x + r`` (rounded to x.dtype) and ``y = rmsnorm(s) * scale``
+    computed in f32 and cast back. x, r: (..., d); scale: (d,). Returns
+    (y, s)."""
+    s = x + r
+    sf = s.float()
+    var = sf.square().mean(dim=-1, keepdim=True)
+    y = sf * torch.rsqrt(var + eps) * scale.float()
+    return y.to(x.dtype), s
+
+
+def swiglu_ref(x: Tensor, wg: Tensor, wu: Tensor) -> Tuple[Tensor, Tensor]:
+    """``h = silu(x @ wg) * (x @ wu)`` and the gate pre-activation
+    ``g = x @ wg``, in x.dtype. x: (..., d); wg, wu: (d, F)."""
+    dt = x.dtype
+    g = x @ wg.to(dt)
+    u = x @ wu.to(dt)
+    return F.silu(g) * u, g
+
+
+# ---------------------------------------------------------------------------
+# attention: prefill (flash forward) and decode
+# ---------------------------------------------------------------------------
+
+
+def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  kv_offsets: Optional[Tensor] = None,
+                  return_lse: bool = False
+                  ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """q: (B, H, T, hd); k, v: (B, KV, S, hd) -> (B, H, T, hd) in q.dtype,
+    and with ``return_lse`` the f32 row logsumexp (B, H, T) (-inf for a
+    row that sees no key).
+
+    Head h reads kv head ``h // (H // KV)``. Key s is visible to query t
+    iff ``s <= t`` (causal), ``s > t - window`` (window) and
+    ``s >= kv_offsets[b]`` (left-padded ragged prompts)."""
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    qg = q.float().reshape(B, KV, g, T, hd)
+    logits = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) / math.sqrt(hd)
+    qi = torch.arange(T, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    mask = mask.expand(B, T, S)
+    if kv_offsets is not None:
+        mask = mask & (ki[None] >= kv_offsets.reshape(B, 1, 1))
+    mask = mask[:, None, None]                              # (B,1,1,T,S)
+    p = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
+    p = p * mask.any(dim=-1, keepdim=True)                  # no key -> 0
+    out = torch.einsum("bkgts,bksd->bkgtd", p, v.float())
+    out = out.reshape(B, H, T, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return out, lse.reshape(B, H, T)
+
+
+def slot_visibility(slot: Tensor, pos: Union[int, Tensor], *, seq_k: int,
+                    window: Optional[int], ring: bool,
+                    offset: Optional[Tensor] = None) -> Tensor:
+    """Visibility of cache slots at query position ``pos`` — the predicate
+    of ``repro.kernels.flash_decode._slot_visibility``, which the CUDA decode
+    kernel evaluates per slot. Slot ``s`` holds global position ``s``, or
+    ``pos - ((pos - s) mod seq_k)`` for a ring buffer; it is visible iff
+    ``0 <= g <= pos``, ``g > pos - window`` and ``g >= offset``."""
+    gpos = pos - torch.remainder(pos - slot, seq_k) if ring else slot
+    mask = (slot < seq_k) & (gpos >= 0) & (gpos <= pos)
+    if window is not None:
+        mask = mask & (gpos > pos - window)
+    if offset is not None:
+        mask = mask & (gpos >= offset)
+    return mask
+
+
+def rope_rotate(x: Tensor, pos: Tensor, theta: float) -> Tensor:
+    """Half-split RoPE of ``x (..., hd)`` by positions ``pos`` broadcastable
+    to ``x.shape[:-1]``, in f32, as the fused kernels rotate in-kernel
+    (``freqs_i = exp(-(i / (hd/2)) * log(theta))``). Returns f32."""
+    half = x.shape[-1] // 2
+    j = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = torch.exp(-(j / half) * math.log(theta))
+    ang = pos.float()[..., None] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float()[..., :half], x.float()[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def flash_decode_ref(q: Tensor, k: Tensor, v: Tensor,
+                     pos: Union[int, Tensor], *,
+                     window: Optional[int] = None, ring: bool = False,
+                     offsets: Optional[Tensor] = None,
+                     rope_theta: Optional[float] = None) -> Tensor:
+    """One query row per sequence against a head-major cache. q: (B, H, hd);
+    k, v: (B, KV, S, hd) -> (B, H, hd) in q.dtype.
+
+    ``pos`` is an int, a 0-d tensor or a per-row ``(B,)`` tensor of query
+    positions. ``rope_theta`` rotates q by ``pos - offsets`` first (the
+    cached keys were rotated when written)."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    posb = posb.to(torch.int64)[:, None]                      # (B, 1)
+    off = None if offsets is None else offsets.to(torch.int64)[:, None]
+    qf = q.float()
+    if rope_theta is not None:
+        qpos = posb if off is None else posb - off
+        qf = rope_rotate(qf, qpos.expand(B, H), rope_theta)
+    qg = qf.reshape(B, KV, g, hd) / math.sqrt(hd)
+    logits = torch.einsum("bkgd,bksd->bkgs", qg, k.float())
+    slot = torch.arange(S, device=q.device)[None, :]
+    valid = slot_visibility(slot, posb, seq_k=S, window=window, ring=ring,
+                            offset=off)                       # (B, S)
+    valid = valid[:, None, None, :]
+    p = torch.softmax(logits.masked_fill(~valid, NEG_INF), dim=-1)
+    p = p * valid.any(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)

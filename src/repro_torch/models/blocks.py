@@ -1,0 +1,163 @@
+"""LayerSpec interpreter of the serving path (the port of
+``repro.models.blocks``): one block is a pre-norm attention sublayer
+(``mixer="attn"`` or sliding-window ``"swa"``) and a dense SwiGLU
+sublayer, run in fused-prefill or one-token decode mode against its cache.
+
+The JAX package scans the repeating body over stacked parameters; the port
+holds one tree per layer: ``stack["body"][j][i]`` is repeat ``i`` of body
+slot ``j`` (``repro_torch.convert.lm_to_torch`` unstacks), and a Python
+loop runs the layers in the reference's order.
+
+Cross-attention, SSM and MoE blocks, tensor parallelism, remat and the
+training forward (no cache) wait for their slices: reaching one raises
+``NotImplementedError`` naming it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+Tensor = torch.Tensor
+
+
+def _supported(spec: LayerSpec) -> None:
+    if spec.cross_attn:
+        raise NotImplementedError("cross-attention blocks come with the "
+                                  "encoder/VLM slice")
+    if spec.mixer == "ssm":
+        raise NotImplementedError("SSM (mamba) blocks come with the SSM "
+                                  "slice")
+    if spec.ff == "moe":
+        raise NotImplementedError("MoE blocks come with the MoE slice")
+
+
+# ---------------------------------------------------------------------------
+# single block
+# ---------------------------------------------------------------------------
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+               dtype: torch.dtype) -> Params:
+    _supported(spec)
+    dev = gen.device
+    p: Params = {}
+    if spec.mixer in ("attn", "swa"):
+        p["norm1"] = L.norm_init(cfg, cfg.d_model, dev)
+        p["mixer"] = L.attention_init(gen, cfg, dtype)
+    if spec.ff == "dense":
+        p["norm2"] = L.norm_init(cfg, cfg.d_model, dev)
+        p["ff"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
+                dtype: torch.dtype, layout: str = "seq",
+                device=None) -> Params:
+    """Decode-time cache of one block: ``layout`` "seq" (B, S, kv, hd) or
+    "head" (B, kv, S, hd), the decode kernel's layout."""
+    _supported(spec)
+    c: Params = {}
+    if spec.mixer in ("attn", "swa"):
+        window = cfg.sliding_window if spec.mixer == "swa" else None
+        c["attn"] = L.init_kv_cache(cfg, batch, max_len, window, dtype,
+                                    layout=layout, device=device)
+    return c
+
+
+def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
+                *, cache: Params, positions: Optional[Tensor] = None,
+                pos: Union[int, Tensor, None] = None, decode: bool = False,
+                use_kernels: bool = False,
+                offsets: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
+    """Apply one block against its cache: ``decode=True`` is one token at
+    ``pos``; otherwise the fused prefill over ``positions`` fills the cache.
+    Returns (x, cache), the cache updated in place."""
+    _supported(spec)
+    if cache is None:
+        raise NotImplementedError("the training forward (no cache) comes "
+                                  "with the LM training slice")
+    y_mix = None
+    if spec.mixer in ("attn", "swa"):
+        window = cfg.sliding_window if spec.mixer == "swa" else None
+        h = L.norm_apply(cfg, params["norm1"], x)
+        if decode:
+            y_mix, _ = L.attention_decode(params["mixer"], cfg, h,
+                                          cache["attn"], pos, window=window,
+                                          offsets=offsets,
+                                          use_kernels=use_kernels)
+        else:
+            y_mix, _ = L.attention_prefill(params["mixer"], cfg, h,
+                                           positions, cache["attn"],
+                                           window=window, offsets=offsets,
+                                           use_kernels=use_kernels)
+    if spec.ff == "dense":
+        # the mixer's residual add fused with the ff pre-norm
+        if y_mix is not None:
+            h, x = L.norm_residual_apply(cfg, params["norm2"], x, y_mix,
+                                         use_kernels=use_kernels)
+        else:
+            h = L.norm_apply(cfg, params["norm2"], x)
+        x = x + L.mlp_apply(params["ff"], h, use_kernels=use_kernels)
+    elif y_mix is not None:
+        x = x + y_mix
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# stacks: head + body (repeated) + tail
+# ---------------------------------------------------------------------------
+
+
+def stack_init(gen: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype) -> Params:
+    return {
+        "head": [block_init(gen, cfg, s, dtype) for s in cfg.head_pattern],
+        "body": [[block_init(gen, cfg, s, dtype)
+                  for _ in range(cfg.body_repeats)]
+                 for s in cfg.body_pattern],
+        "tail": [block_init(gen, cfg, s, dtype) for s in cfg.tail_pattern],
+    }
+
+
+def stack_cache(cfg: ModelConfig, batch: int, max_len: int,
+                dtype: torch.dtype, layout: str = "seq",
+                device=None) -> Params:
+    def one(spec):
+        return block_cache(cfg, spec, batch, max_len, dtype, layout, device)
+
+    return {
+        "head": [one(s) for s in cfg.head_pattern],
+        "body": [[one(s) for _ in range(cfg.body_repeats)]
+                 for s in cfg.body_pattern],
+        "tail": [one(s) for s in cfg.tail_pattern],
+    }
+
+
+def _layers(tree: Params, cfg: ModelConfig) -> List[Tuple[LayerSpec, Any]]:
+    """(spec, subtree) of every layer in execution order."""
+    out = list(zip(cfg.head_pattern, tree["head"]))
+    for i in range(cfg.body_repeats):
+        out += [(s, tree["body"][j][i])
+                for j, s in enumerate(cfg.body_pattern)]
+    return out + list(zip(cfg.tail_pattern, tree["tail"]))
+
+
+def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
+                cache: Params, positions: Optional[Tensor] = None,
+                pos: Union[int, Tensor, None] = None, decode: bool = False,
+                use_kernels: bool = False,
+                offsets: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
+    """Run head + body + tail against ``cache`` (updated in place)."""
+    if cache is None:
+        raise NotImplementedError("the training forward (no cache) comes "
+                                  "with the LM training slice")
+    for (spec, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
+        x, _ = block_apply(p, cfg, spec, x, cache=c, positions=positions,
+                           pos=pos, decode=decode, use_kernels=use_kernels,
+                           offsets=offsets)
+    return x, cache

@@ -1,0 +1,373 @@
+"""Decoder layers of the serving path (the port of ``repro.models.layers``):
+RMSNorm, half-split RoPE, GQA attention over a KV cache (fused prefill and
+one-token decode) and the SwiGLU MLP.
+
+Layers are functions over explicit parameter trees, as in the JAX package:
+``params = <layer>_init(gen, ...)``, ``y = <layer>_apply(params, x, ...)``.
+Weights are drawn from an explicit ``torch.Generator`` on the device the
+tree lives on. Compute happens in the activations' dtype (bf16 at full
+width, f32 in the parity tests); norm scales are f32.
+
+``use_kernels=True`` takes the reference's kernel structure: a head-major
+cache (``kh``/``vh``), the query's RoPE rotation fused into the decode
+kernel and the cached key rotated when written, the flash prefill with the
+ragged ``kv_offsets`` mask, the fused residual-add + RMSNorm and the fused
+SwiGLU. ``use_kernels=False`` is the reference's plain path (``_sdpa``
+over a seq-major cache). Unlike the JAX package, a cache is updated IN
+PLACE and returned: decode then allocates nothing cache-sized.
+
+The training forward (``attention_full``, the local-window attention) and
+the cross-attention, paged and int8 caches wait for their slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_decode import slot_visibility
+
+Params = Dict[str, Any]
+Tensor = torch.Tensor
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
+               scale: Optional[float] = None,
+               dtype: torch.dtype = torch.float32) -> Tensor:
+    """Scaled normal init (``1/sqrt(fan_in)`` unless given), drawn in f32 on
+    the generator's device and cast, as ``repro.models.layers.dense_init``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(max(shape[0], 1))
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (scale * w).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, device: torch.device) -> Params:
+    return {"scale": torch.ones(d, device=device)}
+
+
+def rmsnorm_apply(params: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * params["scale"].float()).to(x.dtype)
+
+
+def norm_init(cfg: ModelConfig, d: int, device: torch.device) -> Params:
+    if cfg.norm.kind != "rmsnorm":
+        raise NotImplementedError(f"norm kind {cfg.norm.kind!r}: the port's "
+                                  f"decoders use rmsnorm")
+    return rmsnorm_init(d, device)
+
+
+def norm_apply(cfg: ModelConfig, params: Params, x: Tensor) -> Tensor:
+    return rmsnorm_apply(params, x, cfg.norm.eps)
+
+
+def norm_residual_apply(cfg: ModelConfig, params: Params, x: Tensor,
+                        r: Tensor, *, use_kernels: bool = False
+                        ) -> Tuple[Tensor, Tensor]:
+    """``(norm(x + r), x + r)``: the next sublayer's input and the new
+    residual stream; one fused kernel pass with kernels on."""
+    if use_kernels:
+        return kops.rmsnorm_residual(x, r, params["scale"], eps=cfg.norm.eps)
+    s = x + r
+    return norm_apply(cfg, params, s), s
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding (half-rotation / llama convention)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., T, H, hd); positions: broadcastable to (..., T)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = (positions[..., None].float() * freqs)[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (d, h * hd), dtype=dtype),
+        "wk": dense_init(gen, (d, kv * hd), dtype=dtype),
+        "wv": dense_init(gen, (d, kv * hd), dtype=dtype),
+        "wo": dense_init(gen, (h * hd, d), dtype=dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, gen.device)
+        p["k_norm"] = rmsnorm_init(hd, gen.device)
+    return p
+
+
+def _project_qkv(params: Params, cfg: ModelConfig, x: Tensor,
+                 positions: Optional[Tensor], rope: bool = True
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    B, T = x.shape[0], x.shape[1]
+    hd = cfg.head_dim
+    dt = x.dtype
+    h = params["wq"].shape[-1] // hd
+    kv = params["wk"].shape[-1] // hd
+    q = (x @ params["wq"].to(dt)).reshape(B, T, h, hd)
+    k = (x @ params["wk"].to(dt)).reshape(B, T, kv, hd)
+    v = (x @ params["wv"].to(dt)).reshape(B, T, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, cfg.norm.eps)
+        k = rmsnorm_apply(params["k_norm"], k, cfg.norm.eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """q: (B,T,h,hd); k,v: (B,S,kv,hd), kv heads repeated to h. mask:
+    broadcastable to (B, T, S), True = attend."""
+    B, T, h, hd = q.shape
+    S, kv = k.shape[1], k.shape[2]
+    if h // kv > 1:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    logits = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(hd)
+    if mask is not None:
+        m = mask.expand((B,) + tuple(mask.shape[-2:]))
+        logits = logits.masked_fill(~m[:, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def _sdpa_grouped(q: Tensor, k: Tensor, v: Tensor,
+                  mask: Optional[Tensor]) -> Tensor:
+    """Decode attention without repeating K/V to full heads: q (B,T,h,hd);
+    k,v (B,S,kv,hd); GQA by a grouped einsum."""
+    B, T, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(B, T, kv, h // kv, hd)
+    logits = torch.einsum("btkgd,bskd->bktgs", qg, k).float() / math.sqrt(hd)
+    if mask is not None:
+        m = mask.expand((B,) + tuple(mask.shape[-2:]))
+        logits = logits.masked_fill(~m[:, None, :, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bktgs,bskd->btkgd", probs, v)
+    return out.reshape(B, T, h, hd)
+
+
+def causal_mask(T: int, S: int, device=None) -> Tensor:
+    """True where query t may attend key s."""
+    qi = torch.arange(T, device=device)[:, None]
+    ki = torch.arange(S, device=device)[None, :]
+    return ki <= qi
+
+
+def window_mask(T: int, S: int, window: int, device=None) -> Tensor:
+    qi = torch.arange(T, device=device)[:, None]
+    ki = torch.arange(S, device=device)[None, :]
+    return (ki <= qi) & (ki > qi - window)
+
+
+# -- KV cache -----------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  window: Optional[int] = None,
+                  dtype: torch.dtype = torch.bfloat16, layout: str = "seq",
+                  device=None) -> Params:
+    """KV cache of one attention layer: a ring of ``min(max_len, window)``
+    slots for sliding-window layers, ``max_len`` slots otherwise.
+    ``layout="seq"`` stores ``k``/``v`` (B, S, kv, hd); ``layout="head"``
+    stores ``kh``/``vh`` (B, kv, S, hd), the decode kernel's layout."""
+    if layout not in ("seq", "head"):
+        raise NotImplementedError(
+            f"cache layout {layout!r}: the paged and int8 caches come with "
+            f"the ContinuousEngine slice")
+    S = min(max_len, window) if window is not None else max_len
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    shape = (batch, kv, S, hd) if layout == "head" else (batch, S, kv, hd)
+    keys = ("kh", "vh") if layout == "head" else ("k", "v")
+    return {n: torch.zeros(shape, dtype=dtype, device=device) for n in keys}
+
+
+def _cache_kv(cache: Params) -> Tuple[Tensor, Tensor, bool]:
+    """(k, v, head_major) for either cache layout."""
+    if "kh" in cache:
+        return cache["kh"], cache["vh"], True
+    return cache["k"], cache["v"], False
+
+
+def _cache_valid_mask(pos: Union[int, Tensor], S: int, *, ring: bool,
+                      offsets: Optional[Tensor], device=None) -> Tensor:
+    """(B?, S) visibility of cache slots at query position ``pos`` (an int
+    or a per-row (B, 1) tensor), by the decode kernel's own predicate.
+    Window membership is implied by the ring depth."""
+    idx = torch.arange(S, device=device)[None, :]
+    return slot_visibility(
+        idx, pos, seq_k=S, window=None, ring=ring,
+        offset=None if offsets is None else offsets[:, None])
+
+
+def attention_decode(params: Params, cfg: ModelConfig, x: Tensor,
+                     cache: Params, pos: Union[int, Tensor], *,
+                     window: Optional[int] = None,
+                     offsets: Optional[Tensor] = None,
+                     use_kernels: bool = False) -> Tuple[Tensor, Params]:
+    """One-token decode. x: (B, 1, D); pos: an int (every row at one
+    position) or a per-row (B,) tensor. ``offsets`` (B,) are the left pads
+    of ragged prompts: RoPE positions are ``pos - offsets`` and earlier
+    slots are masked. Writes this token's K/V into ``cache`` in place.
+    Returns (y (B, 1, D), cache)."""
+    B = x.shape[0]
+    h, hd = cfg.n_heads, cfg.head_dim
+    dev = x.device
+    vector_pos = isinstance(pos, Tensor)
+    if vector_pos:
+        posb = pos.reshape(-1).expand(B).long()
+    else:
+        posb = torch.full((B,), int(pos), device=dev, dtype=torch.long)
+    positions = (posb if offsets is None else posb - offsets)[:, None]
+    # kernels fuse the query rotation into the decode kernel; only the key
+    # still needs its write-time rotation here
+    q, k, v = _project_qkv(params, cfg, x, positions, rope=not use_kernels)
+    if use_kernels:
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    ck, cv, head_major = _cache_kv(cache)
+    S = ck.shape[2 if head_major else 1]
+    if vector_pos:
+        slot = posb % S if window is not None else posb
+        b_idx = torch.arange(B, device=dev)
+        if head_major:
+            ck[b_idx, :, slot] = k[:, 0].to(ck.dtype)
+            cv[b_idx, :, slot] = v[:, 0].to(cv.dtype)
+        else:
+            ck[b_idx, slot] = k[:, 0].to(ck.dtype)
+            cv[b_idx, slot] = v[:, 0].to(cv.dtype)
+    else:
+        slot = pos % S if window is not None else pos
+        if head_major:
+            ck[:, :, slot] = k[:, 0].to(ck.dtype)
+            cv[:, :, slot] = v[:, 0].to(cv.dtype)
+        else:
+            ck[:, slot] = k[:, 0].to(ck.dtype)
+            cv[:, slot] = v[:, 0].to(cv.dtype)
+    ring = window is not None
+    if use_kernels:
+        khm = ck if head_major else ck.transpose(1, 2).contiguous()
+        vhm = cv if head_major else cv.transpose(1, 2).contiguous()
+        out = kops.flash_decode(q, khm.to(q.dtype), vhm.to(q.dtype),
+                                posb.int() if vector_pos else pos,
+                                window=window, ring=ring, offsets=offsets,
+                                rope_theta=cfg.rope_theta)
+    else:
+        valid = _cache_valid_mask(posb[:, None] if vector_pos else pos, S,
+                                  ring=ring, offsets=offsets, device=dev)
+        m = valid.expand(B, S)[:, None, :]
+        ks = ck.transpose(1, 2) if head_major else ck
+        vs = cv.transpose(1, 2) if head_major else cv
+        out = _sdpa_grouped(q, ks.to(q.dtype), vs.to(q.dtype), m)
+    y = out.reshape(B, 1, h * hd) @ params["wo"].to(x.dtype)
+    return y, cache
+
+
+def attention_prefill(params: Params, cfg: ModelConfig, x: Tensor,
+                      positions: Tensor, cache: Params, *,
+                      window: Optional[int] = None,
+                      offsets: Optional[Tensor] = None,
+                      use_kernels: bool = False) -> Tuple[Tensor, Params]:
+    """Fused prefill of one attention layer: full-sequence attention that
+    also writes every position's K/V into the cache (in place).
+
+    x: (B, P, D); positions: (B, P) RoPE positions (already offset for
+    left-padded prompts). Full caches take tokens 0..P-1 at slots 0..P-1;
+    ring caches keep the last ``min(P, ring)`` tokens at slots ``t % ring``.
+    Returns (y (B, P, D), cache)."""
+    B, P, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    ck, cv, head_major = _cache_kv(cache)
+    seq_ax = 2 if head_major else 1
+    S = ck.shape[seq_ax]
+    if window is None and P > S:
+        raise ValueError(f"prompt of {P} tokens exceeds the cache depth {S}")
+
+    def fill(c: Tensor, t: Tensor) -> None:
+        if head_major:
+            t = t.transpose(1, 2)
+        if P <= S:
+            c.narrow(seq_ax, 0, P).copy_(t)
+        else:       # ring wrap: token at global position g lands at g % S
+            tail = t.narrow(seq_ax, P - S, S)
+            c.copy_(torch.roll(tail, (P - S) % S, dims=seq_ax))
+
+    fill(ck, k)
+    fill(cv, v)
+    if use_kernels:
+        out = kops.flash_attention(q, k, v, causal=True, window=window,
+                                   kv_offsets=offsets)
+    else:
+        m = (window_mask(P, P, window, device=x.device) if window is not None
+             else causal_mask(P, P, device=x.device))[None]
+        if offsets is not None:
+            m = m & (torch.arange(P, device=x.device)[None, None, :]
+                     >= offsets[:, None, None])
+        out = _sdpa(q, k, v, m)
+    y = out.reshape(B, P, -1) @ params["wo"].to(x.dtype)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int,
+             dtype: torch.dtype) -> Params:
+    return {
+        "w_gate": dense_init(gen, (d, d_ff), dtype=dtype),
+        "w_up": dense_init(gen, (d, d_ff), dtype=dtype),
+        "w_down": dense_init(gen, (d_ff, d), dtype=dtype),
+    }
+
+
+def mlp_apply(params: Params, x: Tensor, use_kernels: bool = False) -> Tensor:
+    dt = x.dtype
+    if use_kernels:
+        h = kops.swiglu(x, params["w_gate"].to(dt), params["w_up"].to(dt))
+        return h @ params["w_down"].to(dt)
+    g = F.silu(x @ params["w_gate"].to(dt))
+    u = x @ params["w_up"].to(dt)
+    return (g * u) @ params["w_down"].to(dt)

@@ -18,8 +18,12 @@ import torch
 
 from repro_torch import tree
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import fused_norm as FN
 from repro_torch.kernels import gbn as K
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import swiglu as SW
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -75,6 +79,11 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     data = teacher_classification(0, n_train=64, n_test=16,
                                   input_shape=(4, 4, 1))
     lb = presets(32, 16, 16)["LB+LR+GBN+RA"]
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import generate
+    lm = get_config("qwen3-1.7b-reduced")
+    lm_params = TT.init_params(0, lm, device="cpu")
     calls = [
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -83,6 +92,11 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: model_fns(cfg)[0](0, cfg),
         lambda: model_fns(RESNET44_CIFAR10)[0](0, RESNET44_CIFAR10),
         lambda: convert.to_torch({"w": np.zeros(3, np.float32)}),
+        lambda: convert.lm_to_torch({"w": np.zeros(3, np.float32)}, lm),
+        lambda: TT.init_params(0, lm),
+        lambda: TT.init_cache(lm, 2, 8),
+        lambda: generate(lm_params, lm, np.zeros((2, 4), np.int64),
+                         max_new_tokens=2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -123,6 +137,27 @@ def test_library_name_follows_the_source():
     p = build.library_path("gbn.cu")
     assert p.parent == build.BUILD_DIR and p.name.startswith("libgbn-")
     assert (build.CSRC / "gbn.cu").is_file()
+
+
+@pytest.mark.parametrize("source", build.SOURCES)
+def test_every_source_has_its_own_library(source):
+    p = build.library_path(source)
+    stem = source.removesuffix(".cu")
+    assert p.parent == build.BUILD_DIR and p.name.startswith(f"lib{stem}-")
+    assert (build.CSRC / source).is_file()
+
+
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """A change to a shared ``.cuh`` header renames every library, so a
+    stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.library_path("swiglu.cu")
+    (csrc / "common.cuh").write_text("// changed\n")
+    assert build.library_path("swiglu.cu") != before
 
 
 def test_synthetic_data_matches_reference():
@@ -208,3 +243,186 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         K.gbn_forward(x.transpose(1, 2), gamma, beta)
     with pytest.raises(ValueError):
         K.gbn_forward(x, gamma.cpu(), beta)
+
+
+def _on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _bf16_tol(dtype):
+    """f32: 1e-4 (tests/test_fused_kernels.py). bf16: the kernel and its
+    plain version read the same bf16 inputs and round their output once
+    (the plain rmsnorm/swiglu also round intermediates), so they differ by
+    a few bf16 ulps: 2e-2, the reference tests' bf16 bound."""
+    return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+SERVING_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape", [(17, 128), (64, 2048), (5, 100), (3, 7)])
+def test_cuda_rmsnorm_residual_matches_plain(shape, dtype):
+    gen = _on_card()
+    x, r = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = torch.linspace(0.5, 1.5, shape[1], device="cuda")
+    FN.reset_launches()
+    got = FN.rmsnorm_residual(x, r, scale)
+    want = tref.rmsnorm_residual_ref(x, r, scale)
+    tol = _bf16_tol(dtype)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    assert FN.launches == {"rmsnorm_residual": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape", [(9, 128, 256), (33, 256, 384),
+                                   (5, 100, 72), (130, 64, 200)])
+def test_cuda_swiglu_matches_plain(shape, dtype):
+    gen = _on_card()
+    N, d, F = shape
+    x = torch.randn(N, d, generator=gen, device="cuda").to(dtype)
+    wg, wu = ((torch.randn(d, F, generator=gen, device="cuda")
+               / d ** 0.5).to(dtype) for _ in range(2))
+    SW.reset_launches()
+    h, g = SW.swiglu(x, wg, wu)
+    hr, gr = tref.swiglu_ref(x, wg, wu)
+    tol = _bf16_tol(dtype)
+    torch.testing.assert_close(h.float(), hr.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(g.float(), gr.float(), rtol=tol, atol=tol)
+    assert SW.launches == {"swiglu": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape,causal,window,offs", [
+    ((1, 2, 2, 17, 17, 32), True, None, None),
+    ((2, 4, 2, 100, 100, 128), True, 13, None),
+    ((1, 8, 1, 128, 128, 64), False, None, None),
+    ((3, 4, 2, 130, 130, 128), True, None, (0, 7, 129)),
+    ((2, 2, 1, 70, 70, 256), True, 9, (64, 0)),
+])
+def test_cuda_flash_attention_matches_plain(shape, causal, window, offs,
+                                            dtype):
+    gen = _on_card()
+    B, H, KV, T, S, hd = shape
+    q = torch.randn(B, H, T, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    off = None if offs is None else torch.tensor(offs, device="cuda")
+    FA.reset_launches()
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                    kv_offsets=off, return_lse=True)
+    orf, lr = tref.attention_ref(q, k, v, causal=causal, window=window,
+                                 kv_offsets=off, return_lse=True)
+    tol = _bf16_tol(dtype)
+    torch.testing.assert_close(o.float(), orf.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lr, rtol=1e-4, atol=1e-4)
+    assert FA.launches == {"flash_attention": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("B,H,KV,S,hd,window,ring,offs,theta", [
+    (2, 4, 4, 257, 64, None, False, None, None),
+    (2, 8, 2, 333, 64, 48, False, None, 1e4),
+    (2, 4, 2, 16, 64, 16, True, (0, 3), 1e6),
+    (3, 16, 8, 544, 128, None, False, (0, 5, 63), 1e6),
+    (2, 8, 1, 40, 32, None, False, None, None),
+    (1, 2, 1, 30, 256, 7, False, None, 1e4),
+])
+def test_cuda_flash_decode_matches_plain(B, H, KV, S, hd, window, ring, offs,
+                                         theta, dtype):
+    gen = _on_card()
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    off = None if offs is None else torch.tensor(offs, device="cuda",
+                                                 dtype=torch.int32)
+    lo = 0 if offs is None else max(offs)
+    per_row = torch.arange(B, device="cuda", dtype=torch.int32) + S // 2 + lo
+    tol = _bf16_tol(dtype)
+    FD.reset_launches()
+    positions = [lo, S - 1, S + 7 if ring else S - 1, per_row]
+    for pos in positions:
+        got = FD.flash_decode(q, k, v, pos, window=window, ring=ring,
+                              offsets=off, rope_theta=theta)
+        want = tref.flash_decode_ref(q, k, v, pos, window=window, ring=ring,
+                                     offsets=off, rope_theta=theta)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    assert FD.launches == {"flash_decode": len(positions)}
+
+
+@pytest.mark.gpu
+def test_cuda_serving_wrappers_reject_what_the_kernels_do_not_take():
+    _on_card()
+    x = torch.randn(4, 64, device="cuda")
+    w = torch.randn(64, 32, device="cuda")
+    with pytest.raises(TypeError):
+        FN.rmsnorm_residual(x.double(), x.double(), torch.ones(64,
+                                                               device="cuda"))
+    with pytest.raises(ValueError):
+        FN.rmsnorm_residual(x.t(), x.t(), torch.ones(4, device="cuda"))
+    with pytest.raises(ValueError):
+        big = torch.randn(2, FN.MAX_D + 8, device="cuda")
+        FN.rmsnorm_residual(big, big, torch.ones(FN.MAX_D + 8, device="cuda"))
+    with pytest.raises(TypeError):
+        SW.swiglu(x, w.bfloat16(), w.bfloat16())
+    with pytest.raises(ValueError):
+        SW.swiglu(x, w.cpu(), w.cpu())
+    q = torch.randn(1, 4, 8, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention_fwd(q, q[:, :2], q[:, :2])
+    q = torch.randn(1, 4, 8, 64, device="cuda")
+    with pytest.raises(TypeError):
+        FA.flash_attention_fwd(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q, q[:, :3], q[:, :3])
+    kv = torch.randn(1, 1, 16, 128, device="cuda")
+    with pytest.raises(ValueError, match="group"):
+        FD.flash_decode(torch.randn(1, 16, 128, device="cuda"), kv, kv, 3)
+    with pytest.raises(ValueError):
+        FD.flash_decode(torch.randn(1, 2, 128, device="cuda"), kv, kv,
+                        torch.tensor([3, 4], device="cuda"))
+
+
+@pytest.mark.gpu
+def test_cuda_generate_matches_cpu():
+    """Reduced qwen3 in f32, the same parameters on both devices: greedy
+    tokens equal, first-step logits within 1e-4, and the kernels launched
+    once per layer per step."""
+    _on_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import generate
+    cfg = dataclasses.replace(get_config("qwen3-1.7b-reduced"),
+                              dtype="float32")
+    p_cpu = TT.init_params(0, cfg, device="cpu")
+    p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (3, 20))
+    lens = (20, 9, 4)
+    for m in (FA, FD, FN, SW):
+        m.reset_launches()
+    out_gpu = generate(p_gpu, cfg, prompts, max_new_tokens=6,
+                       prompt_lens=lens)
+    out_cpu = generate(p_cpu, cfg, prompts, max_new_tokens=6,
+                       prompt_lens=lens, device="cpu")
+    assert torch.equal(out_gpu.cpu(), out_cpu)
+    layers = cfg.n_layers
+    assert FA.launches["flash_attention"] == layers
+    assert FD.launches["flash_decode"] == layers * 5
+    assert FN.launches["rmsnorm_residual"] == layers * 6
+    assert SW.launches["swiglu"] == layers * 6
+    logits = []
+    for p, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+        cache = TT.init_cache(cfg, 3, 21, device=dev)
+        lg, _ = TT.prefill_forward(p, cfg, torch.as_tensor(prompts,
+                                                           device=dev), cache)
+        logits.append(lg.cpu())
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
