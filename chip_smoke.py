@@ -26,16 +26,42 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
 7. full-width qwen3-1.7b ``generate`` in bf16 (random weights from
    SERVE_SEED): B=8 left-padded prompts of width 512 (PROMPT_LENS),
    greedy, 32 new tokens. The launch counters must show 28
-   flash_attention, 868 flash_decode, 896 rmsnorm_residual and 896 swiglu
-   launches; rows 0 and 7 must equal their unpadded runs. Prefill ms,
+   flash_attention, 868 flash_decode, 1824 rmsnorm_residual (the fused
+   residual norm, each layer's pre-attention norm and the final norm, 57
+   a forward pass) and 896 swiglu launches; rows 0 and 7 must equal their
+   unpadded runs. Prefill ms,
    decode ms a step, tokens/s, peak memory, and a profiled decode step
    and prefill;
 8. reduced qwen3 in f32 on the card against the CPU from the same
-   parameters: greedy tokens equal, prefill logits within TOL.
+   parameters: greedy tokens equal, prefill logits within TOL;
+9. the paged decode kernel (flash_decode_paged) against its plain version
+   on the card: the reference's paged cases in f32 (MHA, GQA, window 24,
+   ragged offsets; shuffled block tables; fused RoPE) at TOL, trash-page
+   tails and an all-trash row, an int8 pool without and with window or
+   RoPE, and the engine's full-width bf16 shape at BF16_TOL; at that shape
+   its output must equal flash_decode's on the contiguous cache bit for
+   bit. Device times of kernel, plain version and one library call
+   (``kp[pt]`` gather + SDPA), and the byte bound, at the engine's state
+   halfway through phase 10's run;
+10. ContinuousEngine on full-width qwen3-1.7b in bf16 (random weights from
+   SERVE_SEED): 16 slots, max_len 1024, a paged pool of 1025 pages of 16,
+   greedy, the 32-request Poisson trace ENGINE_TRACE. Every request must
+   complete; the launch counters must show 28 flash_decode_paged launches
+   a step, no flash_decode launch in a decode step and 28 flash_attention
+   launches an admission; four requests (the first admitted, one admitted
+   into a recycled slot, one with a 512-token prompt, the last admitted)
+   must equal their solo ``generate`` runs. Its stats, peak memory and a
+   profiled decode step; the same trace on an int8 pool (stats, pool
+   bytes, token agreement with bf16) and through ``run_static_trace`` (the
+   lockstep baseline, batch 16);
+11. reduced qwen3 in f32 through ContinuousEngine on the card (kernels)
+   and the CPU (plain versions), full-precision and int8 pools: equal
+   completions.
 
 The second-to-last line is a JSON object with one entry per kernel (GBN
-per ResNet44 step, the serving kernels per ``generate``); the last is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+per ResNet44 step, the static serving kernels per ``generate``, the paged
+decode per engine run); the last is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -674,7 +700,8 @@ def reset_serving_launches():
 
 def family(name: str) -> str:
     n = name.lower()
-    for fam in ("flash_decode", "flash_fwd", "swiglu", "rmsnorm_residual"):
+    for fam in ("flash_decode_paged", "flash_decode", "flash_fwd", "swiglu",
+                "rmsnorm_residual"):
         if fam in n:
             return fam
     if any(s in n for s in ("gemm", "gemv", "sm90", "cutlass", "xmma",
@@ -683,15 +710,13 @@ def family(name: str) -> str:
     return "other"
 
 
-def phase_serve():
-    """Full-width qwen3-1.7b generate in bf16 on one card, random weights
-    from SERVE_SEED: B=8 left-padded prompts of width 512 (PROMPT_LENS),
-    greedy, 32 new tokens, through the four serving kernels."""
+def serve_params():
+    """Full-width qwen3-1.7b in bf16, random weights from SERVE_SEED (phases
+    7 and 10 share them)."""
     import torch
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TT
-    from repro_torch.serving import generate, make_serve_step, prefill_fused
     cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
     params = TT.init_params(SERVE_SEED, cfg)
@@ -702,6 +727,18 @@ def phase_serve():
         f"{cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
         f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn in "
         f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def phase_serve(params):
+    """Full-width qwen3-1.7b generate in bf16 on one card: B=8 left-padded
+    prompts of width 512 (PROMPT_LENS), greedy, 32 new tokens, through the
+    four serving kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import generate, make_serve_step, prefill_fused
+    cfg = get_config(SERVE_ARCH)
     prompts = ragged_prompts(cfg.vocab_size, SERVE_SEED + 1)
     kw = dict(max_new_tokens=SERVE_NEW, prompt_lens=PROMPT_LENS)
     generate(params, cfg, prompts, **kw)                  # warm-up
@@ -715,8 +752,11 @@ def phase_serve():
     launches = serving_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     L, n = cfg.n_layers, SERVE_NEW
+    # every forward pass: the fused residual norm and the pre-attention
+    # norm of each layer, and the final norm
     want = {"flash_attention": L, "flash_decode": L * (n - 1),
-            "rmsnorm_residual": L * n, "swiglu": L * n}
+            "flash_decode_paged": 0, "rmsnorm_residual": (2 * L + 1) * n,
+            "swiglu": L * n}
     log(f"  generate: out {tuple(out.shape)} wall {wall * 1e3:.1f} ms "
         f"({SERVE_B * n / wall:.1f} new tokens/s end to end), peak memory "
         f"{peak:.2f} GiB; launches {launches}")
@@ -791,7 +831,7 @@ def phase_serve():
             f"{1 - busy / host_ms:.3f})")
         for t, count, name in sorted(kernels, reverse=True)[:8]:
             log(f"    {t:9.3f} ms  x{count:<4d} {name[:80]}")
-    del params, cache
+    del cache
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_ms": wall * 1e3,
             "prefill_ms": prefill_ms, "decode_ms": dec, "peak_gib": peak,
@@ -833,6 +873,498 @@ def phase_serve_cuda_vs_cpu():
         raise AssertionError("greedy tokens differ between cuda and cpu")
     return err
 
+# ---------------------------------------------------------------------------
+# continuous serving: the paged decode kernel and ContinuousEngine
+# ---------------------------------------------------------------------------
+
+ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_PAGE = 16, 1024, 16
+ENGINE_TRACE = dict(n_requests=32, rate=0.25,
+                    prompt_len_choices=(128, 256, 512),
+                    new_token_choices=(32, 64, 128), seed=0)
+PAGED_REPLACES = "src/repro/kernels/flash_decode.py:360"
+# the reference's paged cases (tests/test_serving_continuous.py:54-58):
+# B, H, KV, NB, page_size, hd, window, offsets
+PAGED_CASES = [(2, 4, 4, 4, 16, 64, None, None),
+               (2, 4, 2, 4, 16, 64, None, None),
+               (2, 8, 2, 4, 16, 64, 24, None),
+               (3, 4, 1, 2, 32, 32, None, (0, 5, 40))]
+
+
+def paged_from_contiguous(k, v, ps: int, seed: int = 0):
+    """A contiguous (B, KV, S, hd) cache scattered into a page pool of
+    1 + B * S / ps pages through a shuffled block table (page 0 kept as the
+    trash page). Returns (kp, vp, pt int32)."""
+    import numpy as np
+    import torch
+    B, KV, S, hd = k.shape
+    NB = S // ps
+    perm = np.random.RandomState(seed).permutation(np.arange(1, 1 + B * NB))
+    pt = torch.tensor(perm.reshape(B, NB), dtype=torch.int32,
+                      device=k.device)
+
+    def pool(x):
+        blocks = x.reshape(B, KV, NB, ps, hd).transpose(1, 2)
+        p = torch.zeros((1 + B * NB, KV, ps, hd), dtype=x.dtype,
+                        device=x.device)
+        p[pt.reshape(-1).long()] = blocks.reshape(B * NB, KV, ps, hd)
+        return p
+
+    return pool(k), pool(v), pt
+
+
+def phase_paged_kernel():
+    """Phase 9's checks: the paged kernel against its plain version on the
+    card, and bit-equal to flash_decode on the same cache contents.
+    Returns the max abs error over every check."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    errs = [0.0]
+
+    def inputs(B, H, KV, S, hd, dt=torch.float32):
+        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        return q, k, v
+
+    def record(label, tol, *args, **kw):
+        got = FD.flash_decode_paged(*args, **kw)
+        want = ref.flash_decode_paged_ref(*args, **kw)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"paged {label}", got.float(), want.float(),
+                                tol))
+        return got
+
+    log("kernel check flash_decode_paged")
+    for B, H, KV, NB, ps, hd, window, offs in PAGED_CASES:
+        S = NB * ps
+        q, k, v = inputs(B, H, KV, S, hd)
+        off = None if offs is None else torch.tensor(offs, device="cuda",
+                                                     dtype=torch.int32)
+        lo = 0 if offs is None else max(offs)
+        pos = torch.tensor([max(lo, S - 1 - 7 * i) for i in range(B)],
+                           device="cuda", dtype=torch.int32)
+        kp, vp, pt = paged_from_contiguous(k, v, ps, seed=B + NB)
+        for theta in (None, 1e4):
+            record(f"({B}, {H}/{KV}, NB={NB}, ps={ps}, {hd}) window={window}"
+                   f" offsets={offs} rope={theta} f32", TOL, q, kp, vp, pt,
+                   pos, window=window, offsets=off, rope_theta=theta)
+    # trash-page tails and an all-trash row
+    q, k, v = inputs(2, 4, 2, 64, 64)
+    kp, vp, pt = paged_from_contiguous(k, v, 16)
+    pos = torch.tensor([19, 31], device="cuda", dtype=torch.int32)
+    full = FD.flash_decode_paged(q, kp, vp, pt, pos)
+    trashed = pt.clone()
+    trashed[:, 2:] = 0
+    tail = record("trash-page tails f32", TOL, q, kp, vp, trashed, pos)
+    dead = record("all-trash rows f32", TOL, q, kp, vp,
+                  torch.zeros_like(pt), pos)
+    if not torch.equal(tail, full) or not bool(torch.isfinite(dead).all()):
+        raise AssertionError("trash pages past pos changed the output, or "
+                             "an all-trash row is not finite")
+    # an int8 pool, without and with window or RoPE
+    (kq, ks), (vq, vs) = ref.quantize_slots(kp), ref.quantize_slots(vp)
+    pos = torch.tensor([63, 35], device="cuda", dtype=torch.int32)
+    for window, theta in ((None, None), (24, None), (None, 1e4)):
+        record(f"int8 pool window={window} rope={theta} f32", TOL, q, kq, vq,
+               pt, pos, window=window, k_scale=ks, v_scale=vs,
+               rope_theta=theta)
+    # the engine's full-width shape in bf16, and bit-equality
+    cfg = get_config(SERVE_ARCH)
+    B, S = ENGINE_SLOTS, ENGINE_MAX_LEN
+    q, k, v = inputs(B, cfg.n_heads, cfg.n_kv_heads, S, cfg.head_dim,
+                     torch.bfloat16)
+    kp, vp, pt = paged_from_contiguous(k, v, ENGINE_PAGE)
+    # rows at depths 128, 184, ..., 968 (phase 10 has not run yet)
+    pos = torch.arange(B, device="cuda", dtype=torch.int32) * 56 + 128
+    theta = cfg.rope_theta
+    off = (torch.arange(B, device="cuda", dtype=torch.int32) * 7) % 64
+    label = (f"B={B} H={cfg.n_heads} KV={cfg.n_kv_heads} pages "
+             f"{kp.shape[0]}x{ENGINE_PAGE} hd={cfg.head_dim}")
+    for offsets in (None, off):
+        got = record(f"{label} offsets={offsets is not None} rope bf16",
+                     BF16_TOL, q, kp, vp, pt, pos, offsets=offsets,
+                     rope_theta=theta)
+        same = torch.equal(got, FD.flash_decode(q, k, v, pos,
+                                                offsets=offsets,
+                                                rope_theta=theta))
+        log(f"  paged == flash_decode on the contiguous cache, bit for bit "
+            f"(offsets={offsets is not None}): {same}")
+        if not same:
+            raise AssertionError("the paged kernel differs from flash_decode "
+                                 "on the same cache contents")
+    (kq, ks), (vq, vs) = ref.quantize_slots(kp), ref.quantize_slots(vp)
+    record(f"{label} int8 pool rope bf16 q", BF16_TOL, q, kq, vq, pt, pos,
+           k_scale=ks, v_scale=vs, rope_theta=theta)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def paged_work(pos, KV, H, hd, ps, esize, int8=False):
+    """Bytes and operations one paged decode call needs at row positions
+    ``pos``: q in and o out, the visible slots' K and V (and their f32
+    scales for an int8 pool) and the table entries of their blocks; QK and
+    PV over the visible slots."""
+    vis = [int(p) + 1 for p in pos]
+    slot = 2 * KV * hd * (1 if int8 else esize) + (2 * KV * 4 if int8 else 0)
+    nbytes = 2 * len(vis) * H * hd * esize + slot * sum(vis) \
+        + 4 * sum(-(-n // ps) for n in vis)
+    return nbytes, 4.0 * hd * H * sum(vis), BF16_FLOPS
+
+
+def phase_paged_timing(pos_rows):
+    """Device ms per call of the paged kernel (bf16 and int8 pools), its
+    plain version and the library yardstick at the engine's state
+    ``pos_rows`` (16 per-row positions from phase 10's run), full width."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ref
+    cfg = get_config(SERVE_ARCH)
+    H, KV, hd, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ENGINE_PAGE
+    B, S = ENGINE_SLOTS, ENGINE_MAX_LEN
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    kp, vp, pt = paged_from_contiguous(k, v, ps, seed=5)
+    del k, v
+    (kq, ks), (vq, vs) = ref.quantize_slots(kp), ref.quantize_slots(vp)
+    pos = torch.tensor(pos_rows, device="cuda", dtype=torch.int32)
+    theta = cfg.rope_theta
+    qr = ref.rope_rotate(q, pos[:, None].long().expand(B, H),
+                         theta).bfloat16()[:, :, None]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos[:, None].long())[:, None, None]
+    rows = pt.long()
+
+    def library():
+        kg = kp[rows].transpose(1, 2).reshape(B, KV, S, hd)
+        vg = vp[rows].transpose(1, 2).reshape(B, KV, S, hd)
+        return F.scaled_dot_product_attention(qr, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+
+    row = {"ms": kernel_ms(lambda: FD.flash_decode_paged(
+               q, kp, vp, pt, pos, rope_theta=theta)),
+           "plain_ms": kernel_ms(lambda: ref.flash_decode_paged_ref(
+               q, kp, vp, pt, pos, rope_theta=theta)),
+           "int8_ms": kernel_ms(lambda: FD.flash_decode_paged(
+               q, kq, vq, pt, pos, k_scale=ks, v_scale=vs,
+               rope_theta=theta))}
+    try:     # a yardstick only: the port never calls it
+        row["library_ms"] = kernel_ms(library)
+    except Exception as e:
+        log(f"  library yardstick of flash_decode_paged failed: {e!r}")
+        row["library_ms"] = None
+    row["work"] = paged_work(pos_rows, KV, H, hd, ps, 2)
+    row["bound_ms"], row["bound_by"] = bound(*row["work"])
+    row["int8_bound_ms"], _ = bound(*paged_work(pos_rows, KV, H, hd, ps, 2,
+                                                int8=True))
+    log(f"  timing flash_decode_paged at the engine's state (pos "
+        f"{list(map(int, pos_rows))}): " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in row.items() if k != "work"}))
+    torch.cuda.empty_cache()
+    return row
+
+
+def pool_bytes(cache) -> int:
+    """Bytes of the distinct page-pool tensors (kp/vp, and ks/vs) of a
+    cache tree."""
+    from repro_torch import tree
+    seen = {}
+    for t in tree.leaves(cache):
+        if t.dim() >= 3:         # pools and scale planes, not the table
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+class _Stop(Exception):
+    pass
+
+
+def solo_divergence(params, cfg, prompt, want, got):
+    """The first step where a solo run and the engine disagree, and the
+    solo run's top-2 logit gap there."""
+    import torch
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import prefill_fused
+    d = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    P = len(prompt)
+    toks = torch.as_tensor(prompt, device="cuda")[None].long()
+    cache = TT.init_cache(cfg, 1, P + len(want))
+    logits, cache = prefill_fused(params, cfg, toks, cache)
+    for i in range(d):
+        tok = torch.tensor([[want[i]]], device="cuda")
+        lg, cache = TT.decode_step(params, cfg, tok, cache, P + i)
+        logits = lg[:, -1]
+    top = torch.topk(logits.float()[0, :cfg.vocab_size], 2).values
+    return d, float(top[0] - top[1])
+
+
+def batch_invariance_probe(params):
+    """What makes a batched decode row equal its solo run: for each op of
+    the decode step, the number of output values of 16 rows computed
+    together that differ from the same rows computed one at a time (f32
+    where the op's reduction is the question, bf16 for the projections).
+    A measurement printed beside phase 10, not a gate."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lay = params["stack"]["body"][0][0]
+    d = cfg.d_model
+    ones = torch.ones(d, device="cuda")
+    ops = {
+        "mean of squares over d_model, f32": (
+            lambda x: x.square().mean(-1), torch.float32),
+        "plain rmsnorm over d_model, f32": (
+            lambda x: L.rmsnorm_apply({"scale": ones}, x), torch.float32),
+        "norm kernel over d_model, f32": (
+            lambda x: L.norm_apply(cfg, {"scale": ones}, x,
+                                   use_kernels=True), torch.float32),
+        "wq projection (cuBLAS), bf16": (
+            lambda x: x @ lay["mixer"]["wq"], torch.bfloat16),
+        "LM head (cuBLAS), bf16": (
+            lambda x: x @ params["embed"].T, torch.bfloat16),
+    }
+    log("batch invariance: values of 16 rows together that differ from "
+        "the rows alone (20 draws)")
+    for name, (fn, dt) in ops.items():
+        bad = total = 0
+        for _ in range(20):
+            x = torch.randn(ENGINE_SLOTS, 1, d, generator=gen,
+                            device="cuda").to(dt)
+            together = fn(x)
+            alone = torch.cat([fn(x[i:i + 1]) for i in range(len(x))])
+            bad += int((together != alone).sum())
+            total += together.numel()
+        log(f"  {name:<38} {bad} of {total}")
+
+
+def phase_engine(params):
+    """Phase 10: ContinuousEngine at full width (see the module doc).
+    Returns its measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.serving import (ContinuousEngine, generate,
+                                     poisson_trace, run_static_trace)
+    cfg = get_config(SERVE_ARCH)
+    L = cfg.n_layers
+    trace = poisson_trace(cfg, **ENGINE_TRACE)
+    kw = dict(num_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+              layout="paged", page_size=ENGINE_PAGE)
+    log(f"engine {SERVE_ARCH} bf16: {kw}, default pool; trace "
+        f"{ENGINE_TRACE}: {sum(r.max_new_tokens for r in trace)} tokens "
+        f"asked for")
+
+    def instrument(eng, rec):
+        step, admit = eng.step, eng._admit
+
+        def counted_step():
+            rec["pos"].append(eng.pos.copy())
+            before = FD.launches["flash_decode"]
+            step()
+            rec["decode_flash_decode"] += FD.launches["flash_decode"] - before
+
+        def counted_admit(req, slot):
+            fa = FA.launches["flash_attention"]
+            ok = admit(req, slot)
+            if ok:
+                rec["admits"].append((req.id, slot, slot in rec["used"],
+                                      FA.launches["flash_attention"] - fa))
+                rec["used"].add(slot)
+            return ok
+
+        eng.step, eng._admit = counted_step, counted_admit
+
+    out = {}
+    runs = {}
+    for cache_dtype in (None, "int8"):
+        eng = ContinuousEngine(params, cfg, cache_dtype=cache_dtype, **kw)
+        rec = {"pos": [], "admits": [], "used": set(),
+               "decode_flash_decode": 0}
+        instrument(eng, rec)
+        label = cache_dtype or "bf16"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_serving_launches()
+        t0 = time.perf_counter()
+        comps = eng.run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = serving_launches()
+        st = eng.stats()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        pbytes = pool_bytes(eng.cache)
+        log(f"  {label} pool ({pbytes / 1e9:.3f} GB over {L} layers): "
+            f"{ {k: round(v, 3) for k, v in st.items()} }; wall "
+            f"{wall:.2f} s; peak memory {peak:.2f} GiB; launches {launches}")
+        toks = {i: c.tokens for i, c in comps.items()}
+        runs[label] = toks
+        bad = [r.id for r in trace if len(toks.get(r.id, ())) !=
+               r.max_new_tokens or not all(0 <= t < cfg.vocab_size
+                                           for t in toks[r.id])]
+        if sorted(toks) != [r.id for r in trace] or bad:
+            raise AssertionError(f"{label}: requests incomplete or out of "
+                                 f"vocabulary: {bad}")
+        steps = int(st["steps"])
+        admits = rec["admits"]
+        want = {"flash_decode_paged": L * steps, "flash_attention":
+                L * len(trace)}
+        got = {k: launches[k] for k in want}
+        if got != want or rec["decode_flash_decode"] != 0 or \
+                any(n != L for *_, n in admits):
+            raise AssertionError(
+                f"{label}: launches {got}, want {want}; flash_decode in "
+                f"decode steps {rec['decode_flash_decode']}; flash_attention "
+                f"an admission {sorted({n for *_, n in admits})}")
+        out[label] = {"stats": st, "wall_s": wall, "peak_gib": peak,
+                      "pool_bytes": pbytes, "launches": launches}
+        if cache_dtype is None:
+            out["pos"] = rec["pos"][len(rec["pos"]) // 2]
+            out["admits"] = admits
+        del eng
+        torch.cuda.empty_cache()
+
+    same = sum(a == b for i in runs["bf16"]
+               for a, b in zip(runs["bf16"][i], runs["int8"][i]))
+    total = sum(len(t) for t in runs["bf16"].values())
+    out["int8_agreement"] = same / total
+    log(f"  int8 pool vs bf16 pool: {same} of {total} tokens agree "
+        f"({same / total:.4f}); pool bytes "
+        f"{out['int8']['pool_bytes'] / out['bf16']['pool_bytes']:.4f} of "
+        f"bf16's")
+
+    # four requests against their solo runs
+    admits = out["admits"]
+    by_id = {r.id: r for r in trace}
+    recycled = next(i for i, _, reused, _ in admits if reused)
+    long = next(i for i, *_ in admits if len(by_id[i].prompt) == 512
+                and i not in (admits[0][0], recycled))
+    chosen = {"first admitted": admits[0][0],
+              "admitted into a recycled slot": recycled,
+              "512-token prompt": long, "last admitted": admits[-1][0]}
+    for why, i in chosen.items():
+        r = by_id[i]
+        solo = generate(params, cfg, np.asarray(r.prompt)[None],
+                        max_new_tokens=r.max_new_tokens)
+        solo = solo[0, len(r.prompt):].tolist()
+        eq = solo == runs["bf16"][i]
+        log(f"  request {i} ({why}, prompt {len(r.prompt)}, "
+            f"{r.max_new_tokens} tokens) alone: "
+            f"{'equal' if eq else 'DIFFERENT'}")
+        if not eq:
+            d, gap = solo_divergence(params, cfg, r.prompt, solo,
+                                     runs["bf16"][i])
+            log(f"  first divergence of request {i} at generated token {d}; "
+                f"top-2 logit gap of the solo run there {gap:.4g}")
+            raise AssertionError(f"request {i} differs from its solo run")
+
+    # one profiled decode step with the 16 slots busy
+    eng = ContinuousEngine(params, cfg, **kw)
+    step = eng.step
+    prof = {}
+
+    def profiled_step():
+        if eng.steps == 8:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            prof["host_ms"] = (time.perf_counter() - t0) * 1e3
+        elif eng.steps == 9:
+            prof["busy"], prof["kernels"] = profile_device_ms(step, reps=1)
+            raise _Stop
+        else:
+            step()
+
+    eng.step = profiled_step
+    try:
+        eng.run([dataclasses.replace(r, arrival=0.0) for r in trace[:16]])
+    except _Stop:
+        pass
+    fam = {}
+    for t, _, name in prof["kernels"]:
+        fam[family(name)] = fam.get(family(name), 0.0) + t
+    busy, host_ms = prof["busy"] or 0.0, prof["host_ms"]
+    out["profile"] = {"host_ms": host_ms, "busy_ms": busy, "families": fam}
+    log(f"  profile engine decode step (16 active rows): device ms by "
+        f"family { {k: round(v, 3) for k, v in sorted(fam.items())} }; busy "
+        f"{busy:.3f} ms of a {host_ms:.3f} ms step (idle share "
+        f"{1 - busy / host_ms:.3f})")
+    for t, count, name in sorted(prof["kernels"], reverse=True)[:8]:
+        log(f"    {t:9.3f} ms  x{count:<4d} {name[:80]}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the lockstep baseline on the same trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    useful = run_static_trace(params, cfg, trace, batch=ENGINE_SLOTS,
+                              max_len=ENGINE_MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["static"] = {"useful_tokens": useful, "wall_s": wall,
+                     "useful_tok_s": useful / wall}
+    log(f"  run_static_trace (batch {ENGINE_SLOTS}, lockstep): {useful} "
+        f"useful tokens in {wall:.2f} s = {useful / wall:.1f} useful "
+        f"tokens/s; continuous engine {out['bf16']['stats']['useful_tok_s']:.1f}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_engine_cuda_vs_cpu():
+    """Phase 11: reduced qwen3 in f32 through ContinuousEngine on the card
+    (kernels) and on the CPU (plain versions), from the same parameters,
+    on a trace that forces slot reuse: equal completions, for the
+    full-precision and the int8 pool."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import ContinuousEngine, poisson_trace
+    cfg = dataclasses.replace(get_config(SERVE_ARCH + "-reduced"),
+                              dtype="float32")
+    p_cpu = TT.init_params(3, cfg, device="cpu")
+    p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+    trace = poisson_trace(cfg, 8, rate=0.7, prompt_len_choices=(5, 16, 40),
+                          new_token_choices=(4, 12), seed=2)
+    for cache_dtype in (None, "int8"):
+        kw = dict(num_slots=3, max_len=64, layout="paged", page_size=8,
+                  cache_dtype=cache_dtype)
+        runs = {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            eng = ContinuousEngine(p, cfg, device=dev, **kw)
+            runs[dev] = {i: c.tokens for i, c in eng.run(trace).items()}
+        same = runs["cuda"] == runs["cpu"] and len(runs["cuda"]) == 8
+        log(f"engine cuda vs cpu: {cfg.name} f32, 8 requests through 3 "
+            f"slots, pool {cache_dtype or 'f32'}: completions "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("engine completions differ between cuda "
+                                 "and cpu")
+
+
+def paged_row(err, engine, timing):
+    """The flash_decode_paged JSON row, per bf16 engine run: per-call times
+    and bound at the engine's halfway state times the run's launches."""
+    n = engine["bf16"]["launches"]["flash_decode_paged"]
+    lib = timing["library_ms"]
+    return {"name": "flash_decode_paged", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+            "replaces": PAGED_REPLACES, "launches": n, "max_abs_err": err,
+            "ms": timing["ms"] * n, "plain_ms": timing["plain_ms"] * n,
+            "bound_ms": timing["bound_ms"] * n,
+            "bound_by": timing["bound_by"],
+            "library_ms": None if lib is None else lib * n}
+
 
 def serving_rows(kern, serve):
     """One JSON row per serving kernel, totalled over one generate: each
@@ -843,7 +1375,10 @@ def serving_rows(kern, serve):
     rows = []
     for name, (src, replaces) in SERVE_KERNELS.items():
         k = kern[name]
-        if name in ("rmsnorm_residual", "swiglu"):
+        if name == "rmsnorm_residual":     # 2 L + 1 norms a forward pass
+            parts = [(k[SERVE_B * SERVE_P], 2 * L + 1),
+                     (k[SERVE_B], (2 * L + 1) * steps)]
+        elif name == "swiglu":
             parts = [(k[SERVE_B * SERVE_P], L), (k[SERVE_B], L * steps)]
         elif name == "flash_attention":
             parts = [(k[SERVE_P], L)]
@@ -929,14 +1464,23 @@ def main() -> int:
         phase_cuda_vs_cpu()
         # slice 2: qwen3-1.7b serving
         kern = phase_serving_kernels()
-        serve = phase_serve()
+        params = serve_params()
+        serve = phase_serve(params)
         phase_serve_cuda_vs_cpu()
+        # slice 3: continuous serving
+        paged_err = phase_paged_kernel()
+        engine = phase_engine(params)
+        batch_invariance_probe(params)
+        del params
+        paged_timing = phase_paged_timing(engine["pos"])
+        phase_engine_cuda_vs_cpu()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    kernels = gbn_rows(rows, launches, errs) + serving_rows(kern, serve)
+    kernels = gbn_rows(rows, launches, errs) + serving_rows(kern, serve) \
+        + [paged_row(paged_err, engine, paged_timing)]
     log(f"resnet44 step (B={BATCH}): median warm step {step_ms:.2f} ms; "
         f"GBN kernels {kernels[0]['ms'] + kernels[1]['ms']:.3f} ms a step "
         f"(bound {kernels[0]['bound_ms'] + kernels[1]['bound_ms']:.3f} ms)")
@@ -947,6 +1491,16 @@ def main() -> int:
         f"tokens/s, peak {serve['peak_gib']:.2f} GiB; serving kernels per "
         f"generate " + ", ".join(f"{r['name']} {r['ms']:.2f} ms (bound "
                                  f"{r['bound_ms']:.3f})" for r in kernels[2:]))
+    st, base = engine["bf16"]["stats"], engine["static"]
+    log(f"engine {SERVE_ARCH} (16 slots, paged bf16, {ENGINE_TRACE['n_requests']}"
+        f" requests): {st['useful_tok_s']:.1f} useful tokens/s ("
+        f"{st['raw_tok_s']:.1f} raw, {st['steps']:.0f} steps, "
+        f"{st['elapsed_s']:.2f} s); int8 pool "
+        f"{engine['int8']['stats']['useful_tok_s']:.1f}, agreement "
+        f"{engine['int8_agreement']:.4f}; lockstep baseline "
+        f"{base['useful_tok_s']:.1f} useful tokens/s; flash_decode_paged "
+        f"{kernels[-1]['ms']:.2f} ms a run (bound "
+        f"{kernels[-1]['bound_ms']:.3f})")
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up")
     log(smi)
     log(json.dumps({"kernels": kernels}))

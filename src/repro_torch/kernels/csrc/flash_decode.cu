@@ -18,35 +18,23 @@
 // 2 * KV * (pos + 1) * HD elements per row, for 4 FLOPs per element per
 // query head: bytes (at B = 8, KV = 8, S = 544, HD = 128 in bf16, 18 MB).
 //
-// Design (a first, simple kernel; split-KV is later work): one block of 256
-// threads (8 warps) per (kv head, batch row) holds the G = H / KV query rows
-// of the GQA group in shared memory, so each cached key and value is read
-// once per step. The warps take the visible slots in turn: a warp reads
-// one slot's key and value rows whole (each lane HD/32 consecutive
-// elements), forms the G logits with a warp reduction and updates its own
-// online softmax (max, sum and HD/32 output columns per row in registers).
-// Slots outside [offset, pos] (or outside the window) are never visited
-// unless the cache is a ring, whose slot order is not monotone in position.
-// At the end the 8 warps' partial softmaxes are merged through shared
-// memory. Only B * KV blocks run (64 on 132 SMs at B = 8, KV = 8).
+// Design (a first, simple kernel; split-KV is later work): the body of
+// flash_decode.cuh, with each slot read from the contiguous cache. One
+// block of 256 threads (8 warps) per (kv head, batch row) holds the G =
+// H / KV query rows of the GQA group in shared memory, so each cached key
+// and value is read once per step; the warps take the visible slots in
+// turn, each with its own online softmax, merged through shared memory at
+// the end. Slots outside [offset, pos] (or outside the window) are never
+// visited unless the cache is a ring, whose slot order is not monotone in
+// position. Only B * KV blocks run (64 on 132 SMs at B = 8, KV = 8).
 
-#include <math.h>
-
-#include "common.cuh"
+#include "flash_decode.cuh"
 
 namespace {
 
-using port::from_f;
-using port::to_f;
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_GHD = 1024;  // G * HD: query rows of a group times width
-
-__device__ __forceinline__ int floor_mod(int a, int n) {
-  const int r = a % n;
-  return r < 0 ? r + n : r;
-}
+using port::decode::ContiguousSlots;
+using port::decode::MAX_GHD;
+using port::decode::THREADS;
 
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(THREADS)
@@ -56,112 +44,14 @@ __global__ void __launch_bounds__(THREADS)
                         const int* __restrict__ offsets, int H, int KV, int S,
                         int window, int ring, int rope, float log_theta,
                         float scale) {
-  constexpr int C = HD / 32;  // columns per lane
-  __shared__ __align__(16) float qs[G * HD];
-  __shared__ __align__(16) float wacc[WARPS][G * HD];
-  __shared__ float wm[WARPS][G];
-  __shared__ float wl[WARPS][G];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int pos = pos_rows != nullptr ? pos_rows[b] : pos_scalar;
   const int off = offsets != nullptr ? offsets[b] : 0;
-  const size_t q_base = (static_cast<size_t>(b) * H + kvh * G) * HD;
-
-  for (int i = tid; i < G * HD; i += THREADS) qs[i] = to_f(q[q_base + i]);
-  __syncthreads();
-  if (rope) {
-    constexpr int HALF = HD / 2;
-    const float qpos = static_cast<float>(pos - off);
-    for (int i = tid; i < G * HALF; i += THREADS) {
-      const int r = i / HALF, j = i % HALF;
-      const float ang =
-          qpos * expf(-(static_cast<float>(j) / HALF) * log_theta);
-      float sn, cs;
-      sincosf(ang, &sn, &cs);
-      const float x1 = qs[r * HD + j], x2 = qs[r * HD + j + HALF];
-      qs[r * HD + j] = (x1 * cs - x2 * sn) * scale;
-      qs[r * HD + j + HALF] = (x1 * sn + x2 * cs) * scale;
-    }
-  } else {
-    for (int i = tid; i < G * HD; i += THREADS) qs[i] *= scale;
-  }
-  __syncthreads();
-
-  // slots worth visiting; a ring visits all and masks per slot
-  int s_lo = 0, s_hi = S;
-  if (!ring) {
-    s_hi = min(S, pos + 1);
-    s_lo = max(0, off);
-    if (window > 0) s_lo = max(s_lo, pos - window + 1);
-  }
-
-  float m[G], l[G], acc[G][C];
-#pragma unroll
-  for (int r = 0; r < G; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
-  }
-  const size_t kv_base = (static_cast<size_t>(b) * KV + kvh) * S;
-  for (int s = s_lo + warp; s < s_hi; s += WARPS) {
-    const int gp = ring ? pos - floor_mod(pos - s, S) : s;
-    bool ok = gp >= 0 && gp <= pos && gp >= off;
-    if (window > 0) ok = ok && gp > pos - window;
-    if (!ok) continue;  // uniform across the warp
-    const size_t at = (kv_base + s) * HD + lane * C;
-    float kv[C], vv[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      kv[c] = to_f(k[at + c]);
-      vv[c] = to_f(v[at + c]);
-    }
-#pragma unroll
-    for (int r = 0; r < G; ++r) {
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) dot = fmaf(qs[r * HD + lane * C + c], kv[c], dot);
-      dot = port::warp_sum(dot);
-      const float m_new = fmaxf(m[r], dot);
-      const float alpha = expf(m[r] - m_new);
-      const float p = expf(dot - m_new);
-      l[r] = l[r] * alpha + p;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c] * alpha);
-      m[r] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < G; ++r) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) wacc[warp][r * HD + lane * C + c] = acc[r][c];
-    if (lane == 0) {
-      wm[warp][r] = m[r];
-      wl[warp][r] = l[r];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * HD; i += THREADS) {
-    const int r = i / HD;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][r]);
-    float lsum = 0.f, a = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        const float f = expf(wm[w][r] - mx);  // 0 for a warp that saw none
-        lsum = fmaf(wl[w][r], f, lsum);
-        a = fmaf(wacc[w][i], f, a);
-      }
-    }
-    o[q_base + i] = from_f<T>(lsum > 0.f ? a / lsum : 0.f);
-  }
+  const ContiguousSlots<T> slots{k, v,
+                                 (static_cast<size_t>(b) * KV + kvh) * S};
+  port::decode::decode_block<T, HD, G>(q, o, slots, b, kvh, pos, off, H, S,
+                                       window, ring, rope, log_theta, scale);
 }
 
 template <typename T, int HD, int G>

@@ -1,0 +1,146 @@
+// Paged flash decode: one query row per sequence against a page pool
+// reached through per-row block tables, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py:
+//   flash_decode_paged_pallas (_flash_decode_paged_kernel)
+//
+// q: (B, H, HD), f32 or bf16. kp, vp: (pages, KV, ps, HD) of q's dtype, or
+// int8 codes with ks, vs (pages, KV, ps) f32 per-slot scales (an int8 pool
+// dequantizes at the load: k = code * scale, in f32). pt: (B, NB) int32;
+// row b's logical slot s lives at kp[pt[b, s / ps], kvh, s % ps]. pos (per
+// row on the device, or one scalar) and offsets as in flash_decode.cu; a
+// logical slot s is visible iff s <= pos, s > pos - window (window > 0)
+// and s >= offsets[b]. With rope, q is rotated in-kernel by pos -
+// offsets[b]. The output is in q's dtype; a row that sees no slot is 0.
+// Every pt entry a visible slot reaches must lie in [0, pages): the
+// caller's contract (the wrapper cannot check it without a host sync).
+//
+// What bounds it: per step it must read the visible slots of every row,
+// 2 * KV * visible * HD elements (plus 2 * KV * visible f32 scales for
+// int8), for 4 FLOPs per element per query head: bytes.
+//
+// Design (a first, simple kernel; split-KV across more blocks and cp.async
+// or TMA page prefetch are later work): the body of flash_decode.cuh with
+// a slot source that looks each slot's page up in the row's block table.
+// Slots past pos are never read, so block-table entries past pos (the
+// trash page 0 of the serving engine) cost nothing. The slot-to-warp map
+// and the merge order are the contiguous kernel's, so on the same cache
+// contents the output equals flash_decode.cu's bit for bit.
+
+#include "flash_decode.cuh"
+
+namespace {
+
+using port::decode::MAX_GHD;
+using port::decode::PagedSlots;
+using port::decode::THREADS;
+
+template <typename Q, typename T, int HD, int G>
+__global__ void __launch_bounds__(THREADS)
+    flash_decode_paged_kernel(const Q* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const float* __restrict__ ks,
+                              const float* __restrict__ vs,
+                              const int* __restrict__ pt, Q* __restrict__ o,
+                              const int* __restrict__ pos_rows, int pos_scalar,
+                              const int* __restrict__ offsets, int H, int KV,
+                              int NB, int ps, int window, int rope,
+                              float log_theta, float scale) {
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int pos = pos_rows != nullptr ? pos_rows[b] : pos_scalar;
+  const int off = offsets != nullptr ? offsets[b] : 0;
+  const PagedSlots<T> slots{
+      k, v, ks, vs, pt + static_cast<size_t>(b) * NB, KV, kvh, ps};
+  port::decode::decode_block<Q, HD, G>(q, o, slots, b, kvh, pos, off, H,
+                                       NB * ps, window, /*ring=*/0, rope,
+                                       log_theta, scale);
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* pt;
+  void* o;
+  const int* pos_rows;
+  int pos_scalar;
+  const int* offsets;
+  int B, H, KV, NB, ps, window, rope;
+  float log_theta, scale;
+  cudaStream_t stream;
+};
+
+template <typename Q, typename T, int HD, int G>
+int launch(const Args& a) {
+  if constexpr (G * HD > MAX_GHD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const dim3 grid(a.KV, a.B);
+    flash_decode_paged_kernel<Q, T, HD, G><<<grid, THREADS, 0, a.stream>>>(
+        static_cast<const Q*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.ks, a.vs, a.pt, static_cast<Q*>(a.o),
+        a.pos_rows, a.pos_scalar, a.offsets, a.H, a.KV, a.NB, a.ps,
+        a.window, a.rope, a.log_theta, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <typename Q, typename T, int HD>
+int dispatch_g(int g, const Args& a) {
+  switch (g) {
+    case 1: return launch<Q, T, HD, 1>(a);
+    case 2: return launch<Q, T, HD, 2>(a);
+    case 4: return launch<Q, T, HD, 4>(a);
+    case 8: return launch<Q, T, HD, 8>(a);
+    case 16: return launch<Q, T, HD, 16>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename Q, typename T>
+int dispatch_hd(int hd, int g, const Args& a) {
+  switch (hd) {
+    case 32: return dispatch_g<Q, T, 32>(g, a);
+    case 64: return dispatch_g<Q, T, 64>(g, a);
+    case 128: return dispatch_g<Q, T, 128>(g, a);
+    case 256: return dispatch_g<Q, T, 256>(g, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, H, hd) of `dtype`; kp, vp (pages, KV, ps, hd) of `dtype`, or int8
+// when kv_int8 (then ks, vs (pages, KV, ps) f32, else null); pt (B, NB)
+// int32; o like q; all contiguous. pos_rows (B,) int32 or null (then every
+// row is at pos_scalar); offsets (B,) int32 or null. window <= 0 means
+// none. hd is 32, 64, 128 or 256; H / KV is 1, 2, 4, 8 or 16 with
+// (H / KV) * hd <= 1024.
+int flash_decode_paged_fwd(const void* q, const void* kp, const void* vp,
+                           const float* ks, const float* vs, const int* pt,
+                           void* o, const int* pos_rows, int pos_scalar,
+                           const int* offsets, int B, int H, int KV, int NB,
+                           int ps, int hd, int window, int rope,
+                           float log_theta, float scale, int dtype,
+                           int kv_int8, cudaStream_t stream) {
+  if (B < 1 || KV < 1 || H % KV != 0 || NB < 1 || ps < 1 || B > 65535 ||
+      KV > 65535 || (kv_int8 != 0) != (ks != nullptr && vs != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, kp, vp, ks, vs, pt, o, pos_rows, pos_scalar, offsets, B,
+               H, KV, NB, ps, window, rope, log_theta, scale, stream};
+  const int g = H / KV;
+  if (dtype == port::kF32)
+    return kv_int8 ? dispatch_hd<float, int8_t>(hd, g, a)
+                   : dispatch_hd<float, float>(hd, g, a);
+  if (dtype == port::kBF16)
+    return kv_int8 ? dispatch_hd<__nv_bfloat16, int8_t>(hd, g, a)
+                   : dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, g, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

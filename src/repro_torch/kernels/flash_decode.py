@@ -1,4 +1,5 @@
-"""Wrapper of the Hopper flash decode kernel (``csrc/flash_decode.cu``).
+"""Wrappers of the Hopper flash decode kernels (``csrc/flash_decode.cu``
+and ``csrc/flash_decode_paged.cu``, one body in ``csrc/flash_decode.cuh``).
 
 ``flash_decode`` replaces
 ``src/repro/kernels/flash_decode.py:flash_decode_pallas``: one query row
@@ -15,6 +16,14 @@ host. On a CPU tensor the wrapper computes its plain version
 launches the kernel or raises. The kernel's limits: q, k, v of one dtype
 (f32 or bf16), contiguous, ``hd`` in ``HEAD_DIMS``, a GQA group
 ``H // KV`` in ``GROUPS`` with ``(H // KV) * hd <= MAX_GROUP_WIDTH``.
+
+``flash_decode_paged`` replaces
+``src/repro/kernels/flash_decode.py:flash_decode_paged_pallas``: the same
+decode against a page pool ``(pages, KV, ps, hd)`` reached through per-row
+block tables ``pt (B, NB)``, bf16/f32 or int8 codes with per-slot f32
+scales (dequantized at the load). It walks the slots as ``flash_decode``
+does, so on the same cache contents the two agree bit for bit. Its plain
+version is :func:`repro_torch.kernels.ref.flash_decode_paged_ref`.
 """
 from __future__ import annotations
 
@@ -29,17 +38,56 @@ from repro_torch.kernels.ref import slot_visibility  # noqa: F401 (re-export)
 
 Tensor = torch.Tensor
 
-launches: Dict[str, int] = {"flash_decode": 0}
+launches: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0}
 HEAD_DIMS = (32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
 MAX_GROUP_WIDTH = 1024
 
 _SIGNATURES = {"flash_decode_fwd": [L.P] * 5 + [L.I, L.P] + [L.I] * 8
                + [L.F, L.F, L.I, L.P]}
+_PAGED_SIGNATURES = {"flash_decode_paged_fwd": [L.P] * 8 + [L.I, L.P]
+                     + [L.I] * 8 + [L.F, L.F, L.I, L.I, L.P]}
 
 
 def reset_launches() -> None:
-    launches["flash_decode"] = 0
+    for name in launches:
+        launches[name] = 0
+
+
+def _check_group(H: int, KV: int, hd: int) -> None:
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim={hd}: the kernel takes {HEAD_DIMS}")
+    if H % KV or H // KV not in GROUPS \
+            or (H // KV) * hd > MAX_GROUP_WIDTH:
+        raise ValueError(f"H={H}, KV={KV}, hd={hd}: the kernel takes a GQA "
+                         f"group in {GROUPS} with group * hd <= "
+                         f"{MAX_GROUP_WIDTH}")
+    if KV > 65535:
+        raise ValueError(f"KV={KV}: the grid takes at most 65535")
+
+
+def _rows(pos: Union[int, Tensor], offsets: Optional[Tensor], B: int,
+          dev: torch.device, window: Optional[int]):
+    """(pos_rows (B,) int32 or None, pos_scalar, offsets int32 or None,
+    window as an int, 0 for none), checked."""
+    if B > 65535:
+        raise ValueError(f"B={B}: the grid takes at most 65535")
+    pos_rows, pos_scalar = None, 0
+    if isinstance(pos, Tensor):
+        if pos.device != dev or pos.numel() not in (1, B) or pos.dim() > 1:
+            raise ValueError(f"pos must be a scalar or ({B},) on {dev}")
+        pos_rows = pos.to(torch.int32).reshape(-1).expand(B).contiguous()
+    else:
+        pos_scalar = int(pos)
+    offs = None
+    if offsets is not None:
+        if offsets.device != dev or offsets.shape != (B,):
+            raise ValueError(f"offsets must be ({B},) on {dev}")
+        offs = offsets.to(torch.int32).contiguous()
+    w = 0 if window is None else int(window)
+    if window is not None and w < 1:
+        raise ValueError(f"window={window} must be >= 1")
+    return pos_rows, pos_scalar, offs, w
 
 
 def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Union[int, Tensor],
@@ -60,31 +108,9 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Union[int, Tensor],
     L.check("q", q, (B, H, hd), dev)
     L.check("k", k, (B, KV, S, hd), dev, q.dtype)
     L.check("v", v, (B, KV, S, hd), dev, q.dtype)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim={hd}: the kernel takes {HEAD_DIMS}")
-    if H % KV or H // KV not in GROUPS \
-            or (H // KV) * hd > MAX_GROUP_WIDTH:
-        raise ValueError(f"H={H}, KV={KV}, hd={hd}: the kernel takes a GQA "
-                         f"group in {GROUPS} with group * hd <= "
-                         f"{MAX_GROUP_WIDTH}")
-    if B > 65535 or KV > 65535:
-        raise ValueError(f"B={B}, KV={KV}: the grid takes at most 65535 each")
+    _check_group(H, KV, hd)
     L.check_index("S", S)
-    pos_rows, pos_scalar = None, 0
-    if isinstance(pos, Tensor):
-        if pos.device != dev or pos.numel() not in (1, B) or pos.dim() > 1:
-            raise ValueError(f"pos must be a scalar or ({B},) on {dev}")
-        pos_rows = pos.to(torch.int32).reshape(-1).expand(B).contiguous()
-    else:
-        pos_scalar = int(pos)
-    offs = None
-    if offsets is not None:
-        if offsets.device != dev or offsets.shape != (B,):
-            raise ValueError(f"offsets must be ({B},) on {dev}")
-        offs = offsets.to(torch.int32).contiguous()
-    w = 0 if window is None else int(window)
-    if window is not None and w < 1:
-        raise ValueError(f"window={window} must be >= 1")
+    pos_rows, pos_scalar, offs, w = _rows(pos, offsets, B, dev, window)
     rope = rope_theta is not None
     log_theta = math.log(rope_theta) if rope else 0.0
     o = torch.empty_like(q)
@@ -95,4 +121,64 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Union[int, Tensor],
                KV, S, hd, w, int(ring), int(rope), log_theta,
                1.0 / math.sqrt(hd), code, L.stream(dev))
     launches["flash_decode"] += 1
+    return o
+
+
+def flash_decode_paged(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
+                       pos: Union[int, Tensor], *,
+                       window: Optional[int] = None,
+                       offsets: Optional[Tensor] = None,
+                       k_scale: Optional[Tensor] = None,
+                       v_scale: Optional[Tensor] = None,
+                       rope_theta: Optional[float] = None) -> Tensor:
+    """q: (B, H, hd); kp, vp: (pages, KV, ps, hd); pt: (B, NB) int32 ->
+    (B, H, hd) in q.dtype. ``k_scale``/``v_scale`` (pages, KV, ps) f32 come
+    together and only with an int8 pool; a bf16/f32 pool has q's dtype.
+
+    Every ``pt`` entry that a visible slot reaches must lie in
+    [0, pages): the caller's contract, which the wrapper cannot check
+    without a host sync (the serving engine keeps it)."""
+    if not q.is_cuda:
+        return ref.flash_decode_paged_ref(
+            q, kp, vp, pt, pos, window=window, offsets=offsets,
+            k_scale=k_scale, v_scale=v_scale, rope_theta=rope_theta)
+    if q.dim() != 3 or kp.dim() != 4 or pt.dim() != 2:
+        raise ValueError(f"q must be (B, H, hd), kp (pages, KV, ps, hd) and "
+                         f"pt (B, NB), got {tuple(q.shape)}, "
+                         f"{tuple(kp.shape)} and {tuple(pt.shape)}")
+    B, H, hd = q.shape
+    pages, KV, ps = kp.shape[0], kp.shape[1], kp.shape[2]
+    NB = pt.shape[1]
+    dev = q.device
+    code = L.dtype_code("q", q)
+    int8 = kp.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if int8 != (k_scale is not None):
+        raise ValueError("k_scale/v_scale come with an int8 pool and only "
+                         f"with one (pool is {kp.dtype})")
+    kv_dtype = torch.int8 if int8 else q.dtype
+    L.check("q", q, (B, H, hd), dev)
+    L.check("kp", kp, (pages, KV, ps, hd), dev, kv_dtype)
+    L.check("vp", vp, (pages, KV, ps, hd), dev, kv_dtype)
+    L.check("pt", pt, (B, NB), dev, torch.int32)
+    if int8:
+        L.check("k_scale", k_scale, (pages, KV, ps), dev, torch.float32)
+        L.check("v_scale", v_scale, (pages, KV, ps), dev, torch.float32)
+    _check_group(H, KV, hd)
+    if ps < 1 or NB < 1:
+        raise ValueError(f"page_size={ps} and NB={NB} must be >= 1")
+    L.check_index("NB * page_size", NB * ps)
+    pos_rows, pos_scalar, offs, w = _rows(pos, offsets, B, dev, window)
+    rope = rope_theta is not None
+    log_theta = math.log(rope_theta) if rope else 0.0
+    o = torch.empty_like(q)
+    lib = L.bind("flash_decode_paged.cu", _PAGED_SIGNATURES)
+    with torch.cuda.device(dev):
+        L.call(lib.flash_decode_paged_fwd, q.data_ptr(), kp.data_ptr(),
+               vp.data_ptr(), L.ptr(k_scale), L.ptr(v_scale), pt.data_ptr(),
+               o.data_ptr(), L.ptr(pos_rows), pos_scalar, L.ptr(offs), B, H,
+               KV, NB, ps, hd, w, int(rope), log_theta, 1.0 / math.sqrt(hd),
+               code, int(int8), L.stream(dev))
+    launches["flash_decode_paged"] += 1
     return o

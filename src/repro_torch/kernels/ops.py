@@ -5,8 +5,9 @@
   behind a ``torch.autograd.Function`` (``ops.gbn_forward``'s
   ``jax.custom_vjp``). The saved residuals are the input and the reduced
   (G, C) statistics: nothing activation-sized besides x.
-- ``flash_attention``, ``flash_decode``, ``rmsnorm_residual``, ``swiglu``:
-  forward-only layout adapters of the serving path, taking the model's
+- ``flash_attention``, ``flash_decode``, ``flash_decode_paged``,
+  ``rmsnorm_residual``, ``swiglu``: forward-only layout adapters of the
+  serving path, taking the model's
   layouts ((B, T, H, hd) activations, (..., d) rows) to the kernels'. Their
   autograd Functions come with the training slice.
 
@@ -22,6 +23,8 @@ import torch
 from repro_torch.kernels import gbn as K
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode as _flash_decode
+from repro_torch.kernels.flash_decode import \
+    flash_decode_paged as _flash_decode_paged
 from repro_torch.kernels.fused_norm import \
     rmsnorm_residual as _rmsnorm_residual
 from repro_torch.kernels.swiglu import swiglu as _swiglu
@@ -81,6 +84,27 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Union[int, Tensor], *,
     out = _flash_decode(q.reshape(B, H, hd).contiguous(), k, v, pos,
                         window=window, ring=ring, offsets=offsets,
                         rope_theta=rope_theta)
+    return out.reshape(B, 1, H, hd)
+
+
+def flash_decode_paged(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
+                       pos: Union[int, Tensor], *,
+                       window: Optional[int] = None,
+                       offsets: Optional[Tensor] = None,
+                       k_scale: Optional[Tensor] = None,
+                       v_scale: Optional[Tensor] = None,
+                       rope_theta: Optional[float] = None) -> Tensor:
+    """q (B, 1, H, hd) UNROTATED; kp, vp (pages, KV, ps, hd) page pool;
+    pt (B, NB) int32 block tables -> (B, 1, H, hd). ``k_scale``/``v_scale``
+    (pages, KV, ps) f32 mark an int8 pool, dequantized at the load;
+    ``rope_theta`` rotates q by ``pos - offsets`` inside the kernel."""
+    B, T, H, hd = q.shape
+    if T != 1:
+        raise ValueError(f"decode takes one query row per sequence, got {T}")
+    out = _flash_decode_paged(q.reshape(B, H, hd).contiguous(), kp, vp, pt,
+                              pos, window=window, offsets=offsets,
+                              k_scale=k_scale, v_scale=v_scale,
+                              rope_theta=rope_theta)
     return out.reshape(B, 1, H, hd)
 
 

@@ -5,11 +5,13 @@ wrapper, and what ``chip_smoke.py`` holds each CUDA kernel to on the card.
   biased variance).
 - ``rmsnorm_residual_ref`` and ``swiglu_ref`` mirror their ``repro`` twins
   op for op, in the input dtype.
-- ``attention_ref`` and ``flash_decode_ref`` compute in f32 as the kernels
-  do (``repro``'s attention oracle forms bf16 logits; in f32 the two agree).
-  A query row that sees no key (a left-pad row of a ragged prompt) is
-  defined as 0 here and in the kernels, where the JAX oracle returns the
-  mean of V; such rows are masked out of every later attention.
+- ``attention_ref``, ``flash_decode_ref`` and ``flash_decode_paged_ref``
+  compute in f32 as the kernels do (``repro``'s attention oracle forms bf16
+  logits; in f32 the two agree). A query row that sees no key (a left-pad
+  row of a ragged prompt) is defined as 0 here and in the kernels, where
+  the JAX oracle returns the mean of V; such rows are masked out of every
+  later attention.
+- ``quantize_slots`` is the int8 KV pool's per-slot quantizer.
 """
 from __future__ import annotations
 
@@ -198,4 +200,81 @@ def flash_decode_ref(q: Tensor, k: Tensor, v: Tensor,
     p = torch.softmax(logits.masked_fill(~valid, NEG_INF), dim=-1)
     p = p * valid.any(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged decode and the int8 pool
+# ---------------------------------------------------------------------------
+
+
+def quantize_slots(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-slot symmetric int8 over the last (head) dim, the rule of
+    ``repro.serving.engine._slot_scales`` and the quantized decode write:
+    ``scale = max(max|x|, 1e-8) / 127`` and ``codes = clip(round(x /
+    scale), -127, 127)``, all in f32 (``torch.round`` rounds half to even,
+    as ``jnp.round`` does). x: (..., hd) -> (codes (..., hd) int8,
+    scale (...) f32)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    codes = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return codes.to(torch.int8), scale
+
+
+def flash_decode_paged_ref(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
+                           pos: Union[int, Tensor], *,
+                           window: Optional[int] = None,
+                           offsets: Optional[Tensor] = None,
+                           k_scale: Optional[Tensor] = None,
+                           v_scale: Optional[Tensor] = None,
+                           rope_theta: Optional[float] = None) -> Tensor:
+    """One query row per sequence against a paged cache: the port of
+    ``repro.kernels.flash_decode.flash_decode_paged_blockwise``, a loop over
+    logical blocks that gathers ONE page per row per step (``kp[pt[:, i]]``)
+    under an online softmax. q: (B, H, hd); kp, vp: (pages, KV, ps, hd);
+    pt: (B, NB) int -> (B, H, hd) in q.dtype.
+
+    Row b's logical slot s lives at ``kp[pt[b, s // ps], :, s % ps]`` and is
+    visible by :func:`slot_visibility` (no ring, ``seq_k = NB * ps``).
+    ``k_scale``/``v_scale`` (pages, KV, ps) f32 mark an int8 pool,
+    dequantized in f32 at the gather. ``rope_theta`` rotates q by
+    ``pos - offsets`` first. Every ``pt`` entry must lie in [0, pages): the
+    caller's contract, which the CUDA kernel cannot check without a host
+    sync. A row that sees no slot is 0."""
+    B, H, hd = q.shape
+    KV, ps = kp.shape[1], kp.shape[2]
+    NB = pt.shape[1]
+    g = H // KV
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    posb = posb.to(torch.int64)[:, None]                      # (B, 1)
+    off = None if offsets is None else offsets.to(torch.int64)[:, None]
+    qf = q.float()
+    if rope_theta is not None:
+        qpos = posb if off is None else posb - off
+        qf = rope_rotate(qf, qpos.expand(B, H), rope_theta)
+    qg = qf.reshape(B, KV, g, hd) * (1.0 / math.sqrt(hd))
+    m = torch.full((B, KV, g), NEG_INF, device=q.device)
+    l = torch.zeros((B, KV, g), device=q.device)
+    acc = torch.zeros((B, KV, g, hd), device=q.device)
+    seen = torch.zeros((B,), dtype=torch.bool, device=q.device)
+    slots = torch.arange(ps, device=q.device)
+    for i in range(NB):
+        ids = pt[:, i].long()
+        kb, vb = kp[ids].float(), vp[ids].float()             # (B,KV,ps,hd)
+        if k_scale is not None:
+            kb = kb * k_scale[ids][..., None]
+            vb = vb * v_scale[ids][..., None]
+        s = torch.einsum("bkgd,bksd->bkgs", qg, kb)
+        mask = slot_visibility(i * ps + slots[None, :], posb, seq_k=NB * ps,
+                               window=window, ring=False, offset=off)
+        seen = seen | mask.any(dim=-1)
+        s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum("bkgs,bksd->bkgd", p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out = out * seen[:, None, None, None]                    # no slot -> 0
     return out.reshape(B, H, hd).to(q.dtype)

@@ -56,16 +56,22 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 
 
 def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
-                dtype: torch.dtype, layout: str = "seq",
-                device=None) -> Params:
-    """Decode-time cache of one block: ``layout`` "seq" (B, S, kv, hd) or
-    "head" (B, kv, S, hd), the decode kernel's layout."""
+                dtype: torch.dtype, layout: str = "seq", page_size: int = 64,
+                total_pages: Optional[int] = None,
+                cache_dtype: Optional[str] = None, device=None) -> Params:
+    """Decode-time cache of one block: ``layout`` "seq" (B, S, kv, hd),
+    "head" (B, kv, S, hd), the decode kernel's layout, or "paged" (page
+    pool + block tables; swa layers keep their head-major ring).
+    ``cache_dtype="int8"`` quantizes the paged pool per slot (see
+    ``layers.init_kv_cache``)."""
     _supported(spec)
     c: Params = {}
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
         c["attn"] = L.init_kv_cache(cfg, batch, max_len, window, dtype,
-                                    layout=layout, device=device)
+                                    layout=layout, page_size=page_size,
+                                    total_pages=total_pages,
+                                    cache_dtype=cache_dtype, device=device)
     return c
 
 
@@ -84,7 +90,7 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
     y_mix = None
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
-        h = L.norm_apply(cfg, params["norm1"], x)
+        h = L.norm_apply(cfg, params["norm1"], x, use_kernels=use_kernels)
         if decode:
             y_mix, _ = L.attention_decode(params["mixer"], cfg, h,
                                           cache["attn"], pos, window=window,
@@ -101,7 +107,8 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
             h, x = L.norm_residual_apply(cfg, params["norm2"], x, y_mix,
                                          use_kernels=use_kernels)
         else:
-            h = L.norm_apply(cfg, params["norm2"], x)
+            h = L.norm_apply(cfg, params["norm2"], x,
+                             use_kernels=use_kernels)
         x = x + L.mlp_apply(params["ff"], h, use_kernels=use_kernels)
     elif y_mix is not None:
         x = x + y_mix
@@ -125,21 +132,34 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def stack_cache(cfg: ModelConfig, batch: int, max_len: int,
-                dtype: torch.dtype, layout: str = "seq",
-                device=None) -> Params:
+                dtype: torch.dtype, layout: str = "seq", page_size: int = 64,
+                total_pages: Optional[int] = None,
+                cache_dtype: Optional[str] = None, device=None) -> Params:
+    """Caches of every layer. Under ``layout="paged"`` every paged layer
+    holds its own page pool but all share ONE block table tensor ``pt``
+    (the reference keeps one logical table and broadcasts it to every
+    layer), so writing the table once updates every layer."""
     def one(spec):
-        return block_cache(cfg, spec, batch, max_len, dtype, layout, device)
+        return block_cache(cfg, spec, batch, max_len, dtype, layout,
+                           page_size, total_pages, cache_dtype, device)
 
-    return {
+    tree = {
         "head": [one(s) for s in cfg.head_pattern],
         "body": [[one(s) for _ in range(cfg.body_repeats)]
                  for s in cfg.body_pattern],
         "tail": [one(s) for s in cfg.tail_pattern],
     }
+    paged = [c["attn"] for _, c in each_layer(tree, cfg)
+             if "pt" in c.get("attn", {})]
+    for c in paged[1:]:
+        c["pt"] = paged[0]["pt"]
+    return tree
 
 
-def _layers(tree: Params, cfg: ModelConfig) -> List[Tuple[LayerSpec, Any]]:
-    """(spec, subtree) of every layer in execution order."""
+def each_layer(tree: Params, cfg: ModelConfig
+               ) -> List[Tuple[LayerSpec, Any]]:
+    """(spec, subtree) of every layer of a parameter or cache tree, in
+    execution order."""
     out = list(zip(cfg.head_pattern, tree["head"]))
     for i in range(cfg.body_repeats):
         out += [(s, tree["body"][j][i])
@@ -156,7 +176,8 @@ def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
     if cache is None:
         raise NotImplementedError("the training forward (no cache) comes "
                                   "with the LM training slice")
-    for (spec, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
+    for (spec, p), (_, c) in zip(each_layer(params, cfg),
+                                 each_layer(cache, cfg)):
         x, _ = block_apply(p, cfg, spec, x, cache=c, positions=positions,
                            pos=pos, decode=decode, use_kernels=use_kernels,
                            offsets=offsets)

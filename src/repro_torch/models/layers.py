@@ -16,8 +16,13 @@ SwiGLU. ``use_kernels=False`` is the reference's plain path (``_sdpa``
 over a seq-major cache). Unlike the JAX package, a cache is updated IN
 PLACE and returned: decode then allocates nothing cache-sized.
 
+A paged cache (``kp``/``vp`` page pool, ``pt`` block tables, and for an
+int8 pool the ``ks``/``vs`` per-slot scales) is the continuous-batching
+engine's layout; decode writes into it in place and attends through the
+paged decode kernel (kernels) or a gather of every row's pages (plain).
+
 The training forward (``attention_full``, the local-window attention) and
-the cross-attention, paged and int8 caches wait for their slices.
+the cross-attention wait for their slices.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_decode import slot_visibility
+from repro_torch.kernels.ref import quantize_slots
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -80,7 +86,17 @@ def norm_init(cfg: ModelConfig, d: int, device: torch.device) -> Params:
     return rmsnorm_init(d, device)
 
 
-def norm_apply(cfg: ModelConfig, params: Params, x: Tensor) -> Tensor:
+def norm_apply(cfg: ModelConfig, params: Params, x: Tensor, *,
+               use_kernels: bool = False) -> Tensor:
+    """RMSNorm over the model width. With kernels it runs in the fused norm
+    kernel with a zero residual: one block reduces one row in a fixed
+    order, so a row's result does not depend on how many rows the batch
+    holds (torch's mean over d_model splits its reduction by the number of
+    rows, and a last-bit difference there flips a bf16 rounding now and
+    then), which is what lets a ContinuousEngine row equal its solo run."""
+    if use_kernels:
+        return kops.rmsnorm_residual(x, torch.zeros_like(x), params["scale"],
+                                     eps=cfg.norm.eps)[0]
     return rmsnorm_apply(params, x, cfg.norm.eps)
 
 
@@ -207,19 +223,51 @@ def window_mask(T: int, S: int, window: int, device=None) -> Tensor:
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   window: Optional[int] = None,
                   dtype: torch.dtype = torch.bfloat16, layout: str = "seq",
+                  page_size: int = 64, total_pages: Optional[int] = None,
+                  cache_dtype: Optional[str] = None,
                   device=None) -> Params:
     """KV cache of one attention layer: a ring of ``min(max_len, window)``
     slots for sliding-window layers, ``max_len`` slots otherwise.
-    ``layout="seq"`` stores ``k``/``v`` (B, S, kv, hd); ``layout="head"``
-    stores ``kh``/``vh`` (B, kv, S, hd), the decode kernel's layout."""
-    if layout not in ("seq", "head"):
-        raise NotImplementedError(
-            f"cache layout {layout!r}: the paged and int8 caches come with "
-            f"the ContinuousEngine slice")
+
+    - ``layout="seq"``: ``k``/``v`` (B, S, kv, hd), the plain path's.
+    - ``layout="head"``: ``kh``/``vh`` (B, kv, S, hd), the decode kernel's.
+    - ``layout="paged"``: a page pool ``kp``/``vp`` (total_pages, kv,
+      page_size, hd) and int32 block tables ``pt`` (B, ceil(max_len /
+      page_size)) mapping row b's logical block i to a page. Page 0 is the
+      trash page: unallocated and retired table entries point at it and no
+      visible slot ever maps there. ``total_pages`` defaults to
+      ``1 + batch * n_blocks``. A sliding-window layer keeps its
+      head-major ring (``kh``/``vh``).
+
+    ``cache_dtype="int8"`` (paged only) stores the pool as int8 codes with
+    f32 per-slot scales ``ks``/``vs`` (total_pages, kv, page_size); the
+    window ring stays in ``dtype``."""
+    if cache_dtype not in (None, "int8"):
+        raise ValueError(f"unknown cache_dtype: {cache_dtype!r}")
+    if cache_dtype == "int8" and layout != "paged":
+        raise ValueError(
+            "cache_dtype='int8' requires layout='paged' (the contiguous "
+            "layouts have no per-slot scale planes)")
+    if layout not in ("seq", "head", "paged"):
+        raise ValueError(f"unknown cache layout {layout!r}")
     S = min(max_len, window) if window is not None else max_len
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    shape = (batch, kv, S, hd) if layout == "head" else (batch, S, kv, hd)
-    keys = ("kh", "vh") if layout == "head" else ("k", "v")
+    if layout == "paged" and window is None:
+        nb = -(-max_len // page_size)
+        pages = total_pages if total_pages is not None else 1 + batch * nb
+        pool = (pages, kv, page_size, hd)
+        pool_dtype = torch.int8 if cache_dtype == "int8" else dtype
+        c = {n: torch.zeros(pool, dtype=pool_dtype, device=device)
+             for n in ("kp", "vp")}
+        if cache_dtype == "int8":
+            for n in ("ks", "vs"):
+                c[n] = torch.zeros(pool[:3], dtype=torch.float32,
+                                   device=device)
+        c["pt"] = torch.zeros((batch, nb), dtype=torch.int32, device=device)
+        return c
+    head = layout in ("head", "paged")
+    shape = (batch, kv, S, hd) if head else (batch, S, kv, hd)
+    keys = ("kh", "vh") if head else ("k", "v")
     return {n: torch.zeros(shape, dtype=dtype, device=device) for n in keys}
 
 
@@ -241,6 +289,58 @@ def _cache_valid_mask(pos: Union[int, Tensor], S: int, *, ring: bool,
         offset=None if offsets is None else offsets[:, None])
 
 
+def _paged_decode(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                  cache: Params, posb: Tensor, *, window: Optional[int],
+                  offsets: Optional[Tensor], use_kernels: bool) -> Tensor:
+    """Write this token's K/V into row b's page ``pt[b, pos_b // ps]`` at
+    slot ``pos_b % ps`` (in place; an int8 pool quantizes per slot first),
+    then attend: the paged decode kernel with the query's RoPE fused in, or
+    a gather of every row's pages and the grouped einsum. A retired row
+    whose table was zeroed writes into the trash page 0. Returns
+    (B, 1, h, hd)."""
+    kp, vp, pt = cache["kp"], cache["vp"], cache["pt"]
+    quantized = "ks" in cache
+    B, kv, hd = q.shape[0], kp.shape[1], kp.shape[3]
+    ps, NB = kp.shape[2], pt.shape[1]
+    b_idx = torch.arange(B, device=q.device)
+    page = pt[b_idx, (posb // ps).clamp(0, NB - 1)].long()          # (B,)
+    slot = posb % ps
+    ks_ = vs_ = None
+    if quantized:
+        ks_, vs_ = cache["ks"], cache["vs"]
+        kq, ksc = quantize_slots(k[:, 0])                # (B, kv, hd), (B, kv)
+        vq, vsc = quantize_slots(v[:, 0])
+        kp[page, :, slot] = kq
+        vp[page, :, slot] = vq
+        ks_[page, :, slot] = ksc
+        vs_[page, :, slot] = vsc
+    else:
+        kp[page, :, slot] = k[:, 0].to(kp.dtype)
+        vp[page, :, slot] = v[:, 0].to(vp.dtype)
+    if use_kernels:
+        if not quantized and kp.dtype != q.dtype:
+            kp, vp = kp.to(q.dtype), vp.to(q.dtype)
+        return kops.flash_decode_paged(q, kp, vp, pt, posb.int(),
+                                       window=window, offsets=offsets,
+                                       k_scale=ks_, v_scale=vs_,
+                                       rope_theta=cfg.rope_theta)
+    S = NB * ps
+    rows = pt.long()
+
+    def gather(pool: Tensor, scales: Optional[Tensor]) -> Tensor:
+        g = pool[rows].permute(0, 2, 1, 3, 4).reshape(B, kv, S, hd)
+        if scales is not None:
+            sc = scales[rows].permute(0, 2, 1, 3).reshape(B, kv, S, 1)
+            g = g.float() * sc
+        return g.to(q.dtype).transpose(1, 2)                 # (B, S, kv, hd)
+
+    m = slot_visibility(
+        torch.arange(S, device=q.device)[None, :], posb[:, None], seq_k=S,
+        window=window, ring=False,
+        offset=None if offsets is None else offsets[:, None])
+    return _sdpa_grouped(q, gather(kp, ks_), gather(vp, vs_), m[:, None, :])
+
+
 def attention_decode(params: Params, cfg: ModelConfig, x: Tensor,
                      cache: Params, pos: Union[int, Tensor], *,
                      window: Optional[int] = None,
@@ -249,8 +349,9 @@ def attention_decode(params: Params, cfg: ModelConfig, x: Tensor,
     """One-token decode. x: (B, 1, D); pos: an int (every row at one
     position) or a per-row (B,) tensor. ``offsets`` (B,) are the left pads
     of ragged prompts: RoPE positions are ``pos - offsets`` and earlier
-    slots are masked. Writes this token's K/V into ``cache`` in place.
-    Returns (y (B, 1, D), cache)."""
+    slots are masked. Writes this token's K/V into ``cache`` in place; a
+    paged cache (``pt`` in it) takes :func:`_paged_decode`. Returns
+    (y (B, 1, D), cache)."""
     B = x.shape[0]
     h, hd = cfg.n_heads, cfg.head_dim
     dev = x.device
@@ -265,6 +366,12 @@ def attention_decode(params: Params, cfg: ModelConfig, x: Tensor,
     q, k, v = _project_qkv(params, cfg, x, positions, rope=not use_kernels)
     if use_kernels:
         k = apply_rope(k, positions, cfg.rope_theta)
+
+    if "pt" in cache:                  # paged pool + per-row block tables
+        out = _paged_decode(cfg, q, k, v, cache, posb, window=window,
+                            offsets=offsets, use_kernels=use_kernels)
+        y = out.reshape(B, 1, h * hd) @ params["wo"].to(x.dtype)
+        return y, cache
 
     ck, cv, head_major = _cache_kv(cache)
     S = ck.shape[2 if head_major else 1]
@@ -317,6 +424,10 @@ def attention_prefill(params: Params, cfg: ModelConfig, x: Tensor,
     ring caches keep the last ``min(P, ring)`` tokens at slots ``t % ring``.
     Returns (y (B, P, D), cache)."""
     B, P, _ = x.shape
+    if "pt" in cache:
+        raise ValueError("a paged cache is filled by ContinuousEngine's "
+                         "admission: prefill a contiguous cache and scatter "
+                         "it into the pages")
     q, k, v = _project_qkv(params, cfg, x, positions)
     ck, cv, head_major = _cache_kv(cache)
     seq_ax = 2 if head_major else 1

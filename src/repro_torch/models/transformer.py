@@ -53,18 +53,26 @@ def init_params(seed: int, cfg: ModelConfig, device: DeviceLike = None
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype: Optional[torch.dtype] = None, layout: str = "head",
+               page_size: int = 64, total_pages: Optional[int] = None,
+               cache_dtype: Optional[str] = None,
                device: DeviceLike = None) -> Params:
     """Zeroed KV caches of every layer, ``max_len`` slots deep (a ring of
     ``sliding_window`` slots for "swa" layers). ``layout="head"`` is the
-    decode kernel's (B, kv, S, hd); "seq" the plain path's (B, S, kv, hd).
-    ``dtype`` defaults to the config's compute dtype."""
+    decode kernel's (B, kv, S, hd); "seq" the plain path's (B, S, kv, hd);
+    "paged" gives full-attention layers a page pool of ``total_pages``
+    pages (the trash page 0 included) of ``page_size`` slots and one
+    block table shared by every layer, for :class:`repro_torch.serving.
+    ContinuousEngine`. ``cache_dtype="int8"`` stores the paged pool as
+    per-slot int8 codes with f32 scales (``ks``/``vs``). ``dtype``
+    defaults to the config's compute dtype."""
     dev = resolve_device(device)
     return B.stack_cache(cfg, batch, max_len, dtype or compute_dtype(cfg),
-                         layout, dev)
+                         layout, page_size, total_pages, cache_dtype, dev)
 
 
-def _logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
-    x = L.norm_apply(cfg, params["final_norm"], x)
+def _logits(params: Params, cfg: ModelConfig, x: Tensor,
+            use_kernels: bool) -> Tensor:
+    x = L.norm_apply(cfg, params["final_norm"], x, use_kernels=use_kernels)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     return x @ head.to(x.dtype).T
 
@@ -81,7 +89,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: Tensor,
     x, cache = B.stack_apply(params["stack"], cfg, x, cache=cache, pos=pos,
                              decode=True, use_kernels=use_kernels,
                              offsets=offsets)
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, use_kernels), cache
 
 
 def prefill_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
@@ -106,4 +114,4 @@ def prefill_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     x, cache = B.stack_apply(params["stack"], cfg, x, cache=cache,
                              positions=positions, decode=False,
                              use_kernels=use_kernels, offsets=offsets)
-    return _logits(params, cfg, x[:, -1:]), cache
+    return _logits(params, cfg, x[:, -1:], use_kernels), cache

@@ -81,7 +81,7 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     lb = presets(32, 16, 16)["LB+LR+GBN+RA"]
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TT
-    from repro_torch.serving import generate
+    from repro_torch.serving import ContinuousEngine, generate
     lm = get_config("qwen3-1.7b-reduced")
     lm_params = TT.init_params(0, lm, device="cpu")
     calls = [
@@ -95,8 +95,13 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: convert.lm_to_torch({"w": np.zeros(3, np.float32)}, lm),
         lambda: TT.init_params(0, lm),
         lambda: TT.init_cache(lm, 2, 8),
+        lambda: TT.init_cache(lm, 2, 16, layout="paged", page_size=8),
+        lambda: TT.init_cache(lm, 2, 16, layout="paged", page_size=8,
+                              cache_dtype="int8"),
         lambda: generate(lm_params, lm, np.zeros((2, 4), np.int64),
                          max_new_tokens=2),
+        lambda: ContinuousEngine(lm_params, lm, num_slots=2, max_len=16,
+                                 page_size=8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -356,7 +361,7 @@ def test_cuda_flash_decode_matches_plain(B, H, KV, S, hd, window, ring, offs,
                                      offsets=off, rope_theta=theta)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-    assert FD.launches == {"flash_decode": len(positions)}
+    assert FD.launches["flash_decode"] == len(positions)
 
 
 @pytest.mark.gpu
@@ -396,7 +401,8 @@ def test_cuda_serving_wrappers_reject_what_the_kernels_do_not_take():
 def test_cuda_generate_matches_cpu():
     """Reduced qwen3 in f32, the same parameters on both devices: greedy
     tokens equal, first-step logits within 1e-4, and the kernels launched
-    once per layer per step."""
+    once per layer per step (the norm kernel twice, and once more for the
+    final norm)."""
     _on_card()
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TT
@@ -417,7 +423,7 @@ def test_cuda_generate_matches_cpu():
     layers = cfg.n_layers
     assert FA.launches["flash_attention"] == layers
     assert FD.launches["flash_decode"] == layers * 5
-    assert FN.launches["rmsnorm_residual"] == layers * 6
+    assert FN.launches["rmsnorm_residual"] == (2 * layers + 1) * 6
     assert SW.launches["swiglu"] == layers * 6
     logits = []
     for p, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
@@ -426,3 +432,181 @@ def test_cuda_generate_matches_cpu():
                                                            device=dev), cache)
         logits.append(lg.cpu())
     torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+
+
+def _paged_from_contiguous(k, v, ps, seed=0):
+    """A contiguous (B, KV, S, hd) cache scattered into a page pool with a
+    shuffled block table (page 0 kept as the trash page)."""
+    B, KV, S, hd = k.shape
+    NB = S // ps
+    perm = np.random.RandomState(seed).permutation(np.arange(1, 1 + B * NB))
+    pt = torch.tensor(perm.reshape(B, NB), dtype=torch.int32,
+                      device=k.device)
+
+    def pool(x):
+        blocks = x.reshape(B, KV, NB, ps, hd).transpose(1, 2)
+        p = torch.zeros((1 + B * NB, KV, ps, hd), dtype=x.dtype,
+                        device=x.device)
+        p[pt.reshape(-1).long()] = blocks.reshape(B * NB, KV, ps, hd)
+        return p
+
+    return pool(k), pool(v), pt
+
+
+PAGED_CASES = [   # B, H, KV, NB, ps, hd, window, offsets, rope_theta
+    (2, 4, 4, 4, 16, 64, None, None, None),        # MHA
+    (2, 4, 2, 4, 16, 64, None, None, None),        # GQA
+    (2, 8, 2, 4, 16, 64, 24, None, None),          # window over pages
+    (3, 4, 1, 2, 32, 32, None, (0, 5, 40), None),  # ragged left padding
+    (3, 16, 8, 9, 16, 128, None, (0, 3, 17), 1e6),  # qwen3 heads, RoPE
+    (2, 4, 2, 5, 7, 256, 9, None, 1e4),            # odd page, window, RoPE
+]
+
+
+def _paged_inputs(B, H, KV, NB, ps, hd, offs, dtype, gen):
+    S = NB * ps
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    off = None if offs is None else torch.tensor(offs, device="cuda",
+                                                 dtype=torch.int32)
+    lo = 0 if offs is None else max(offs)
+    pos = torch.tensor([max(lo, S - 1 - 7 * i) for i in range(B)],
+                       device="cuda", dtype=torch.int32)
+    return q, k, v, off, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("B,H,KV,NB,ps,hd,window,offs,theta", PAGED_CASES)
+def test_cuda_flash_decode_paged_matches_plain(B, H, KV, NB, ps, hd, window,
+                                               offs, theta, dtype, int8):
+    """The paged kernel against its plain version, shuffled block table,
+    per-row and scalar positions; an int8 pool dequantizes in f32 in both
+    (f32 1e-4, bf16 2e-2)."""
+    gen = _on_card()
+    q, k, v, off, pos = _paged_inputs(B, H, KV, NB, ps, hd, offs, dtype, gen)
+    kp, vp, pt = _paged_from_contiguous(k, v, ps)
+    scales = {}
+    if int8:
+        (kp, ks), (vp, vs) = tref.quantize_slots(kp), tref.quantize_slots(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    FD.reset_launches()
+    tol = _bf16_tol(dtype)
+    for p in (pos, int(pos.min())):
+        got = FD.flash_decode_paged(q, kp, vp, pt, p, window=window,
+                                    offsets=off, rope_theta=theta, **scales)
+        want = tref.flash_decode_paged_ref(q, kp, vp, pt, p, window=window,
+                                           offsets=off, rope_theta=theta,
+                                           **scales)
+        assert got.dtype == q.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    assert FD.launches == {"flash_decode": 0, "flash_decode_paged": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("B,H,KV,NB,ps,hd,window,offs,theta", PAGED_CASES)
+def test_cuda_flash_decode_paged_bit_equals_contiguous(B, H, KV, NB, ps, hd,
+                                                       window, offs, theta,
+                                                       dtype):
+    """On the same cache contents the paged kernel walks the slots as the
+    contiguous one does: equal bit for bit."""
+    gen = _on_card()
+    q, k, v, off, pos = _paged_inputs(B, H, KV, NB, ps, hd, offs, dtype, gen)
+    kp, vp, pt = _paged_from_contiguous(k, v, ps, seed=B + NB)
+    got = FD.flash_decode_paged(q, kp, vp, pt, pos, window=window,
+                                offsets=off, rope_theta=theta)
+    want = FD.flash_decode(q, k, v, pos, window=window, offsets=off,
+                           rope_theta=theta)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_decode_paged_trash_pages():
+    """Table entries past pos on the trash page change nothing; an
+    all-trash row and a row that sees no slot are finite (the latter 0)."""
+    gen = _on_card()
+    q, k, v, _, _ = _paged_inputs(2, 4, 2, 4, 16, 64, None, torch.float32,
+                                  gen)
+    kp, vp, pt = _paged_from_contiguous(k, v, 16)
+    pos = torch.tensor([19, 31], device="cuda", dtype=torch.int32)
+    full = FD.flash_decode_paged(q, kp, vp, pt, pos)
+    trashed = pt.clone()
+    trashed[:, 2:] = 0
+    assert torch.equal(FD.flash_decode_paged(q, kp, vp, trashed, pos), full)
+    dead = FD.flash_decode_paged(q, kp, vp, torch.zeros_like(pt), pos)
+    torch.testing.assert_close(
+        dead, tref.flash_decode_paged_ref(q, kp, vp, torch.zeros_like(pt),
+                                          pos), rtol=1e-4, atol=1e-4)
+    none = FD.flash_decode_paged(q, kp, vp, pt, pos,
+                                 offsets=torch.tensor([25, 40], device="cuda",
+                                                      dtype=torch.int32))
+    assert torch.isfinite(dead).all() and not none[0].any()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_decode_paged_rejects_what_the_kernel_does_not_take():
+    gen = _on_card()
+    q, k, v, _, pos = _paged_inputs(2, 4, 2, 2, 16, 64, None, torch.float32,
+                                    gen)
+    kp, vp, pt = _paged_from_contiguous(k, v, 16)
+    (kq, ks), (vq, vs) = tref.quantize_slots(kp), tref.quantize_slots(vp)
+    bad = [
+        (TypeError, lambda: FD.flash_decode_paged(q, kp, vp, pt.long(), pos)),
+        (ValueError, lambda: FD.flash_decode_paged(q, kp, vp, pt.t(), pos)),
+        (TypeError, lambda: FD.flash_decode_paged(q, kp.bfloat16(),
+                                                  vp.bfloat16(), pt, pos)),
+        (ValueError, lambda: FD.flash_decode_paged(q, kq, vq, pt, pos)),
+        (ValueError, lambda: FD.flash_decode_paged(q, kp, vp, pt, pos,
+                                                   k_scale=ks, v_scale=vs)),
+        (ValueError, lambda: FD.flash_decode_paged(q, kq, vq, pt, pos,
+                                                   k_scale=ks)),
+        (TypeError, lambda: FD.flash_decode_paged(q, kq, vq, pt, pos,
+                                                  k_scale=ks.double(),
+                                                  v_scale=vs.double())),
+        (TypeError, lambda: FD.flash_decode_paged(q.double(), kp.double(),
+                                                  vp.double(), pt, pos)),
+        (ValueError, lambda: FD.flash_decode_paged(q, kp, vp, pt.cpu(), pos)),
+        (ValueError, lambda: FD.flash_decode_paged(
+            torch.randn(2, 4, 48, device="cuda"), kp[..., :48].contiguous(),
+            vp[..., :48].contiguous(), pt, pos)),
+    ]
+    FD.reset_launches()
+    for err, call in bad:
+        with pytest.raises(err):
+            call()
+    assert FD.launches["flash_decode_paged"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,cache_dtype", [("paged", None),
+                                                ("paged", "int8"),
+                                                ("head", None)])
+def test_cuda_continuous_engine_matches_cpu(layout, cache_dtype):
+    """Reduced qwen3 in f32, the same parameters on the card (kernels) and
+    the CPU (plain versions), through slot reuse: equal completions; the
+    paged kernel launched once per layer per step."""
+    _on_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import ContinuousEngine, poisson_trace
+    cfg = dataclasses.replace(get_config("qwen3-1.7b-reduced"),
+                              dtype="float32")
+    p_cpu = TT.init_params(0, cfg, device="cpu")
+    p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+    reqs = poisson_trace(cfg, 6, rate=0.8, prompt_len_choices=(5, 16, 23),
+                         new_token_choices=(3, 9), seed=1)
+    kw = dict(num_slots=3, max_len=32, layout=layout, page_size=8,
+              cache_dtype=cache_dtype)
+    FD.reset_launches()
+    eng = ContinuousEngine(p_gpu, cfg, **kw)
+    gpu = {i: c.tokens for i, c in eng.run(reqs).items()}
+    launches = dict(FD.launches)
+    cpu = {i: c.tokens for i, c in ContinuousEngine(
+        p_cpu, cfg, device="cpu", **kw).run(reqs).items()}
+    assert gpu == cpu and sorted(gpu) == list(range(6))
+    key = "flash_decode_paged" if layout == "paged" else "flash_decode"
+    assert launches[key] == cfg.n_layers * eng.steps
