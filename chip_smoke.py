@@ -21,8 +21,9 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
 6. each serving kernel (rmsnorm_residual, swiglu, flash_attention,
    flash_decode) against its plain version on the card: at the full-width
    qwen3-1.7b shapes of phase 7 in bf16 (BF16_TOL) and at small f32
-   shapes (TOL), ring/window decode included; device times of kernel,
-   plain version and one library call, and the bound, at phase 7's shapes;
+   shapes (TOL), ring/window decode included, the norm also with no
+   residual; device times of kernel, plain version and one library call,
+   and the bound, at phase 7's shapes;
 7. full-width qwen3-1.7b ``generate`` in bf16 (random weights from
    SERVE_SEED): B=8 left-padded prompts of width 512 (PROMPT_LENS),
    greedy, 32 new tokens. The launch counters must show 28
@@ -40,9 +41,10 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    tails and an all-trash row, an int8 pool without and with window or
    RoPE, and the engine's full-width bf16 shape at BF16_TOL; at that shape
    its output must equal flash_decode's on the contiguous cache bit for
-   bit. Device times of kernel, plain version and one library call
-   (``kp[pt]`` gather + SDPA), and the byte bound, at the engine's state
-   halfway through phase 10's run;
+   bit. Device times a call of kernel (bf16 and int8 pools), plain version
+   and one library call (``kp[pt]`` gather + SDPA) at four states sampled
+   across phase 10's run, on pools that do not fit in L2, timed in turn
+   for three rounds;
 10. ContinuousEngine on full-width qwen3-1.7b in bf16 (random weights from
    SERVE_SEED): 16 slots, max_len 1024, a paged pool of 1025 pages of 16,
    greedy, the 32-request Poisson trace ENGINE_TRACE. Every request must
@@ -50,22 +52,28 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    a step, no flash_decode launch in a decode step and 28 flash_attention
    launches an admission; four requests (the first admitted, one admitted
    into a recycled slot, one with a 512-token prompt, the last admitted)
-   must equal their solo ``generate`` runs. Its stats, peak memory and a
-   profiled decode step; the same trace on an int8 pool (stats, pool
-   bytes, token agreement with bf16) and through ``run_static_trace`` (the
-   lockstep baseline, batch 16);
+   must equal their solo ``generate`` runs. The same trace on an int8 pool
+   (pool bytes, token agreement with bf16); both pools run again in the
+   other order (stats of each read twice), then once each under the
+   profiler (device ms and launches by kernel family over the whole run,
+   the paged kernel's count checked against the counter), and one
+   profiled decode step of each; peak memory; the same trace through
+   ``run_static_trace`` (the lockstep baseline, batch 16);
 11. reduced qwen3 in f32 through ContinuousEngine on the card (kernels)
    and the CPU (plain versions), full-precision and int8 pools: equal
    completions.
 
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, the paged
-decode per engine run); the last is ``{"ok": true, "device": {...}}``.
+decode per bf16 engine run: its ms from the profiled run, its plain and
+library ms from phase 9's per-call times, its bound from every launch's
+positions); the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -448,25 +456,32 @@ SERVE_KERNELS = {
 }
 
 
-def profile_device_ms(fn, reps: int = 10):
+def profile_device_ms(fn, reps: int = 10, warm: bool = True,
+                      host: bool = True):
     """Device time per call of everything ``fn`` launches (torch.profiler,
-    after one warm call), and the kernels by name. None when the profiler
-    shows no device time."""
+    after one warm call unless ``warm`` is off; ``host=False`` records the
+    device's activity only), and the kernels by name: (ms, calls, name) per
+    call. None when the profiler shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = []
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total",
-                    getattr(ev, "cuda_time_total", 0.0))
-        if t and ev.device_type.name == "CUDA":
-            kernels.append((t / 1e3 / reps, ev.count // reps, ev.key))
+    # the raw device events, summed by name (a whole engine run holds
+    # ~10^6 events, too many to parse into the profiler's event tree)
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type().name == "CUDA" and \
+                not getattr(ev, "is_user_annotation", lambda: False)():
+            t, n = by_name.get(ev.name(), (0, 0))
+            by_name[ev.name()] = (t + ev.duration_ns(), n + 1)
+    kernels = [(t / 1e6 / reps, n // reps, name)
+               for name, (t, n) in by_name.items() if t]
     total = sum(k[0] for k in kernels)
     return (total if total > 0 else None), kernels
 
@@ -484,9 +499,10 @@ def bound(nbytes: float, flops: float, peak: float):
                                        else "operations")
 
 
-def norm_work(N, d, esize=2):
-    # read x, r, scale; write y, s; ~5 f32 ops an element
-    return esize * 4 * N * d + 4 * d, 5.0 * N * d, F32_FLOPS
+def norm_work(N, d, esize=2, residual=True):
+    # read x (and r), scale; write y (and s); ~5 f32 ops an element
+    return esize * (4 if residual else 2) * N * d + 4 * d, 5.0 * N * d, \
+        F32_FLOPS
 
 
 def swiglu_work(N, d, F, esize=2):
@@ -574,6 +590,15 @@ def phase_serving_kernels():
               lambda: ref.rmsnorm_residual_ref(x, r, scale),
               lambda: F.rms_norm(x + r, (d,), scale_bf, 1e-6),
               norm_work(N, d))
+        # no residual: each layer's pre-attention norm and the final norm
+        record("rmsnorm_residual", f"({N}, {d}) bf16 no residual",
+               FN.rmsnorm_residual(x, None, scale)[0],
+               ref.rmsnorm_residual_ref(x, None, scale)[0], BF16_TOL)
+        timed("rmsnorm_residual", (N, "no residual"),
+              lambda: FN.rmsnorm_residual(x, None, scale),
+              lambda: ref.rmsnorm_residual_ref(x, None, scale),
+              lambda: F.rms_norm(x, (d,), scale_bf, 1e-6),
+              norm_work(N, d, residual=False))
     x, r = randn(17, 128, dt=torch.float32), randn(17, 128, dt=torch.float32)
     s128 = torch.linspace(0.5, 1.5, 128, device="cuda")
     record("rmsnorm_residual", "(17, 128) f32",
@@ -882,6 +907,7 @@ ENGINE_TRACE = dict(n_requests=32, rate=0.25,
                     prompt_len_choices=(128, 256, 512),
                     new_token_choices=(32, 64, 128), seed=0)
 PAGED_REPLACES = "src/repro/kernels/flash_decode.py:360"
+PAGED_POOLS, PAGED_ROUNDS, PAGED_STATES = 4, 3, 4
 # the reference's paged cases (tests/test_serving_continuous.py:54-58):
 # B, H, KV, NB, page_size, hd, window, offsets
 PAGED_CASES = [(2, 4, 4, 4, 16, 64, None, None),
@@ -1014,10 +1040,17 @@ def paged_work(pos, KV, H, hd, ps, esize, int8=False):
     return nbytes, 4.0 * hd * H * sum(vis), BF16_FLOPS
 
 
-def phase_paged_timing(pos_rows):
+def phase_paged_timing(states):
     """Device ms per call of the paged kernel (bf16 and int8 pools), its
-    plain version and the library yardstick at the engine's state
-    ``pos_rows`` (16 per-row positions from phase 10's run), full width."""
+    plain version and the library yardstick at full width, at the per-row
+    position vectors ``states`` sampled across phase 10's run. Each timed
+    function rotates through PAGED_POOLS distinct pools (268 MB of bf16
+    K/V, more than the card's 50 MB L2), so K/V come from device memory as
+    in the engine, where every layer has a pool of its own. The functions
+    are timed in turn for PAGED_ROUNDS rounds; a time is the median of its
+    rounds. Returns [{key: median ms}] per state and the rounds' spread."""
+    import itertools
+    import statistics
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -1026,49 +1059,77 @@ def phase_paged_timing(pos_rows):
     cfg = get_config(SERVE_ARCH)
     H, KV, hd, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ENGINE_PAGE
     B, S = ENGINE_SLOTS, ENGINE_MAX_LEN
+    theta = cfg.rope_theta
     gen = torch.Generator(device="cuda").manual_seed(17)
     q = torch.randn(B, H, hd, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda")
-            .bfloat16() for _ in range(2))
-    kp, vp, pt = paged_from_contiguous(k, v, ps, seed=5)
-    del k, v
-    (kq, ks), (vq, vs) = ref.quantize_slots(kp), ref.quantize_slots(vp)
-    pos = torch.tensor(pos_rows, device="cuda", dtype=torch.int32)
-    theta = cfg.rope_theta
-    qr = ref.rope_rotate(q, pos[:, None].long().expand(B, H),
-                         theta).bfloat16()[:, :, None]
-    mask = (torch.arange(S, device="cuda")[None, :]
-            <= pos[:, None].long())[:, None, None]
-    rows = pt.long()
+    pools = []
+    for i in range(PAGED_POOLS):
+        k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        kp, vp, pt = paged_from_contiguous(k, v, ps, seed=5 + i)
+        del k, v
+        (kq, ks), (vq, vs) = ref.quantize_slots(kp), ref.quantize_slots(vp)
+        pools.append((kp, vp, pt, kq, ks, vq, vs))
 
-    def library():
-        kg = kp[rows].transpose(1, 2).reshape(B, KV, S, hd)
-        vg = vp[rows].transpose(1, 2).reshape(B, KV, S, hd)
-        return F.scaled_dot_product_attention(qr, kg, vg, attn_mask=mask,
-                                              enable_gqa=True)
+    def rotating(fn):
+        turn = itertools.cycle(pools)
+        return lambda: fn(*next(turn))
 
-    row = {"ms": kernel_ms(lambda: FD.flash_decode_paged(
-               q, kp, vp, pt, pos, rope_theta=theta)),
-           "plain_ms": kernel_ms(lambda: ref.flash_decode_paged_ref(
-               q, kp, vp, pt, pos, rope_theta=theta)),
-           "int8_ms": kernel_ms(lambda: FD.flash_decode_paged(
-               q, kq, vq, pt, pos, k_scale=ks, v_scale=vs,
-               rope_theta=theta))}
-    try:     # a yardstick only: the port never calls it
-        row["library_ms"] = kernel_ms(library)
-    except Exception as e:
-        log(f"  library yardstick of flash_decode_paged failed: {e!r}")
-        row["library_ms"] = None
-    row["work"] = paged_work(pos_rows, KV, H, hd, ps, 2)
-    row["bound_ms"], row["bound_by"] = bound(*row["work"])
-    row["int8_bound_ms"], _ = bound(*paged_work(pos_rows, KV, H, hd, ps, 2,
-                                                int8=True))
-    log(f"  timing flash_decode_paged at the engine's state (pos "
-        f"{list(map(int, pos_rows))}): " + json.dumps(
-            {k: (round(v, 4) if isinstance(v, float) else v)
-             for k, v in row.items() if k != "work"}))
+    def functions(pos):
+        qr = ref.rope_rotate(q, pos[:, None].long().expand(B, H),
+                             theta).bfloat16()[:, :, None]
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= pos[:, None].long())[:, None, None]
+
+        def library(kp, vp, pt, *_):
+            rows = pt.long()
+            kg = kp[rows].transpose(1, 2).reshape(B, KV, S, hd)
+            vg = vp[rows].transpose(1, 2).reshape(B, KV, S, hd)
+            return F.scaled_dot_product_attention(qr, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        return {
+            "ms": rotating(lambda kp, vp, pt, *_: FD.flash_decode_paged(
+                q, kp, vp, pt, pos, rope_theta=theta)),
+            "int8_ms": rotating(lambda kp, vp, pt, kq, ks, vq, vs:
+                                FD.flash_decode_paged(
+                                    q, kq, vq, pt, pos, k_scale=ks,
+                                    v_scale=vs, rope_theta=theta)),
+            "plain_ms": rotating(lambda kp, vp, pt, *_:
+                                 ref.flash_decode_paged_ref(
+                                     q, kp, vp, pt, pos, rope_theta=theta)),
+            "library_ms": rotating(library)}
+
+    fns = [functions(torch.tensor(p, device="cuda", dtype=torch.int32))
+           for p in states]
+    times = [{k: [] for k in f} for f in fns]
+    for _ in range(PAGED_ROUNDS):
+        for f, t in zip(fns, times):
+            for key, fn in f.items():
+                try:
+                    t[key].append(kernel_ms(fn))
+                except Exception as e:
+                    if key != "library_ms":
+                        raise
+                    # a yardstick only: the port never calls it
+                    log(f"  library yardstick of flash_decode_paged failed: "
+                        f"{e!r}")
+                    t[key].append(None)
+    out = []
+    for p, t in zip(states, times):
+        row = {k: (None if None in v else statistics.median(v))
+               for k, v in t.items()}
+        out.append(row)
+        log(f"  timing flash_decode_paged, cold pools, {PAGED_ROUNDS} "
+            f"rounds, {sum(int(x) + 1 for x in p)} visible slots (pos "
+            f"{list(map(int, p))}): median " + json.dumps(
+                {k: (None if v is None else round(v, 4))
+                 for k, v in row.items()}) + "; rounds " + json.dumps(
+                {k: [None if x is None else round(x, 4) for x in v]
+                 for k, v in t.items()}))
+    del pools
     torch.cuda.empty_cache()
-    return row
+    return out
 
 
 def pool_bytes(cache) -> int:
@@ -1226,11 +1287,67 @@ def phase_engine(params):
                 f"{label}: launches {got}, want {want}; flash_decode in "
                 f"decode steps {rec['decode_flash_decode']}; flash_attention "
                 f"an admission {sorted({n for *_, n in admits})}")
+        # the bound over the run: every launch at its own step's positions
+        work = [paged_work(p, cfg.n_kv_heads, cfg.n_heads, cfg.head_dim,
+                           ENGINE_PAGE, 2, int8=cache_dtype == "int8")
+                for p in rec["pos"]]
         out[label] = {"stats": st, "wall_s": wall, "peak_gib": peak,
-                      "pool_bytes": pbytes, "launches": launches}
+                      "pool_bytes": pbytes, "launches": launches,
+                      "bound": bound(L * sum(w[0] for w in work),
+                                     L * sum(w[1] for w in work), BF16_FLOPS)}
         if cache_dtype is None:
-            out["pos"] = rec["pos"][len(rec["pos"]) // 2]
+            n = len(rec["pos"])
+            out["states"] = [rec["pos"][(2 * i + 1) * n // (2 * PAGED_STATES)]
+                             for i in range(PAGED_STATES)]
             out["admits"] = admits
+        del eng
+        gc.collect()        # the patched step holds a cycle with eng
+        torch.cuda.empty_cache()
+
+    # each pool once more, in the other order (bf16, int8, int8, bf16), so
+    # each pool's tokens/s is read twice around the other's; then one run
+    # of each under the profiler (the device's activity only): device ms
+    # and launches by kernel family over the whole run
+    for cache_dtype in ("int8", None):
+        label = cache_dtype or "bf16"
+        eng = ContinuousEngine(params, cfg, cache_dtype=cache_dtype, **kw)
+        torch.cuda.synchronize()
+        toks = {i: c.tokens for i, c in eng.run(trace).items()}
+        torch.cuda.synchronize()
+        st = eng.stats()
+        if toks != runs[label]:
+            raise AssertionError(f"{label}: a second run gave other tokens")
+        out[label]["repeat_stats"] = st
+        log(f"  {label} pool again: useful {st['useful_tok_s']:.1f} raw "
+            f"{st['raw_tok_s']:.1f} tokens/s ({st['elapsed_s']:.2f} s)")
+        del eng
+        torch.cuda.empty_cache()
+    for cache_dtype in (None, "int8"):
+        label = cache_dtype or "bf16"
+        eng = ContinuousEngine(params, cfg, cache_dtype=cache_dtype, **kw)
+        reset_serving_launches()
+        busy, kernels = profile_device_ms(lambda: eng.run(trace), reps=1,
+                                          warm=False, host=False)
+        fam, calls = {}, {}
+        for t, count, name in kernels:
+            fam[family(name)] = fam.get(family(name), 0.0) + t
+            calls[family(name)] = calls.get(family(name), 0) + count
+        paged = serving_launches()["flash_decode_paged"]
+        if calls.get("flash_decode_paged") != paged:
+            raise AssertionError(
+                f"{label}: the profile holds {calls.get('flash_decode_paged')}"
+                f" paged decode kernels, the counter {paged}")
+        elapsed = [out[label]["stats"]["elapsed_s"],
+                   out[label]["repeat_stats"]["elapsed_s"]]
+        out[label]["run_profile"] = {"busy_ms": busy or 0.0,
+                                     "families": fam, "calls": calls}
+        log(f"  {label} pool, profiled run: device busy {busy or 0.0:.1f} ms"
+            f" (idle share {1 - (busy or 0.0) / 1e3 / (sum(elapsed) / 2):.3f}"
+            f" of the unprofiled runs' {elapsed[0]:.2f} and {elapsed[1]:.2f}"
+            f" s); device ms by family "
+            f"{ {k: round(v, 3) for k, v in sorted(fam.items())} }; "
+            f"launches a step by family "
+            f"{ {k: round(v / eng.steps, 2) for k, v in sorted(calls.items())} }")
         del eng
         torch.cuda.empty_cache()
 
@@ -1268,42 +1385,51 @@ def phase_engine(params):
                 f"top-2 logit gap of the solo run there {gap:.4g}")
             raise AssertionError(f"request {i} differs from its solo run")
 
-    # one profiled decode step with the 16 slots busy
-    eng = ContinuousEngine(params, cfg, **kw)
-    step = eng.step
-    prof = {}
+    # one profiled decode step with the 16 slots busy, for each pool
+    for cache_dtype in (None, "int8"):
+        label = cache_dtype or "bf16"
+        eng = ContinuousEngine(params, cfg, cache_dtype=cache_dtype, **kw)
+        step = eng.step
+        prof = {}
 
-    def profiled_step():
-        if eng.steps == 8:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            prof["host_ms"] = (time.perf_counter() - t0) * 1e3
-        elif eng.steps == 9:
-            prof["busy"], prof["kernels"] = profile_device_ms(step, reps=1)
-            raise _Stop
-        else:
-            step()
+        def profiled_step():
+            if eng.steps == 8:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                prof["host_ms"] = (time.perf_counter() - t0) * 1e3
+            elif eng.steps == 9:
+                prof["busy"], prof["kernels"] = profile_device_ms(step,
+                                                                  reps=1)
+                raise _Stop
+            else:
+                step()
 
-    eng.step = profiled_step
-    try:
-        eng.run([dataclasses.replace(r, arrival=0.0) for r in trace[:16]])
-    except _Stop:
-        pass
-    fam = {}
-    for t, _, name in prof["kernels"]:
-        fam[family(name)] = fam.get(family(name), 0.0) + t
-    busy, host_ms = prof["busy"] or 0.0, prof["host_ms"]
-    out["profile"] = {"host_ms": host_ms, "busy_ms": busy, "families": fam}
-    log(f"  profile engine decode step (16 active rows): device ms by "
-        f"family { {k: round(v, 3) for k, v in sorted(fam.items())} }; busy "
-        f"{busy:.3f} ms of a {host_ms:.3f} ms step (idle share "
-        f"{1 - busy / host_ms:.3f})")
-    for t, count, name in sorted(prof["kernels"], reverse=True)[:8]:
-        log(f"    {t:9.3f} ms  x{count:<4d} {name[:80]}")
-    del eng
-    torch.cuda.empty_cache()
+        eng.step = profiled_step
+        try:
+            eng.run([dataclasses.replace(r, arrival=0.0)
+                     for r in trace[:16]])
+        except _Stop:
+            pass
+        fam, calls = {}, {}
+        for t, count, name in prof["kernels"]:
+            fam[family(name)] = fam.get(family(name), 0.0) + t
+            calls[family(name)] = calls.get(family(name), 0) + count
+        busy, host_ms = prof["busy"] or 0.0, prof["host_ms"]
+        out[label]["profile"] = {"host_ms": host_ms, "busy_ms": busy,
+                                 "families": fam, "calls": calls}
+        log(f"  profile engine decode step ({label} pool, 16 active rows): "
+            f"device ms by family "
+            f"{ {k: round(v, 3) for k, v in sorted(fam.items())} }; "
+            f"launches by family {dict(sorted(calls.items()))} "
+            f"({sum(calls.values())}); busy {busy:.3f} ms of a "
+            f"{host_ms:.3f} ms step (idle share {1 - busy / host_ms:.3f})")
+        for t, count, name in sorted(prof["kernels"], reverse=True)[:8]:
+            log(f"    {t:9.3f} ms  x{count:<4d} {name[:80]}")
+        del eng
+        gc.collect()        # the patched step holds a cycle with eng
+        torch.cuda.empty_cache()
 
     # the lockstep baseline on the same trace
     torch.cuda.synchronize()
@@ -1353,17 +1479,26 @@ def phase_engine_cuda_vs_cpu():
 
 
 def paged_row(err, engine, timing):
-    """The flash_decode_paged JSON row, per bf16 engine run: per-call times
-    and bound at the engine's halfway state times the run's launches."""
-    n = engine["bf16"]["launches"]["flash_decode_paged"]
-    lib = timing["library_ms"]
+    """The flash_decode_paged JSON row, per bf16 engine run: ms is the
+    kernel's device time over a profiled run of the engine (every launch
+    of the run); plain and library ms are their per-call times at the
+    states sampled across the run (cold pools, medians of rounds),
+    averaged over the states and times the run's launches; the bound sums
+    the bytes and operations of every launch at its own step's
+    positions."""
+    run = engine["bf16"]
+    n = run["launches"]["flash_decode_paged"]
+
+    def per_run(key):
+        vals = [t[key] for t in timing]
+        return None if None in vals else sum(vals) / len(vals) * n
+
     return {"name": "flash_decode_paged", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
             "replaces": PAGED_REPLACES, "launches": n, "max_abs_err": err,
-            "ms": timing["ms"] * n, "plain_ms": timing["plain_ms"] * n,
-            "bound_ms": timing["bound_ms"] * n,
-            "bound_by": timing["bound_by"],
-            "library_ms": None if lib is None else lib * n}
+            "ms": run["run_profile"]["families"]["flash_decode_paged"],
+            "plain_ms": per_run("plain_ms"), "bound_ms": run["bound"][0],
+            "bound_by": run["bound"][1], "library_ms": per_run("library_ms")}
 
 
 def serving_rows(kern, serve):
@@ -1375,9 +1510,13 @@ def serving_rows(kern, serve):
     rows = []
     for name, (src, replaces) in SERVE_KERNELS.items():
         k = kern[name]
-        if name == "rmsnorm_residual":     # 2 L + 1 norms a forward pass
-            parts = [(k[SERVE_B * SERVE_P], 2 * L + 1),
-                     (k[SERVE_B], (2 * L + 1) * steps)]
+        if name == "rmsnorm_residual":
+            # a forward pass: L fused residual norms, and L + 1 norms with
+            # no residual (each layer's pre-attention norm, the final norm)
+            parts = [(k[SERVE_B * SERVE_P], L),
+                     (k[(SERVE_B * SERVE_P, "no residual")], L + 1),
+                     (k[SERVE_B], L * steps),
+                     (k[(SERVE_B, "no residual")], (L + 1) * steps)]
         elif name == "swiglu":
             parts = [(k[SERVE_B * SERVE_P], L), (k[SERVE_B], L * steps)]
         elif name == "flash_attention":
@@ -1448,7 +1587,14 @@ def main() -> int:
             f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
             f"{torch.backends.cudnn.allow_tf32}")
         t_start = time.perf_counter()
+        took = {}
+
+        def lap(name):
+            took[name] = round(time.perf_counter() - t_start
+                               - sum(took.values()), 1)
+
         phase_build()
+        lap("build")
         # slice 1: the GBN training path
         rows = {}
         errs = phase_kernels(rows)
@@ -1462,18 +1608,23 @@ def main() -> int:
         del data
         phase_train("f1-mnist", F1_MNIST, (28, 28, 1), 4)
         phase_cuda_vs_cpu()
+        lap("slice 1")
         # slice 2: qwen3-1.7b serving
         kern = phase_serving_kernels()
         params = serve_params()
         serve = phase_serve(params)
         phase_serve_cuda_vs_cpu()
+        lap("slice 2")
         # slice 3: continuous serving
         paged_err = phase_paged_kernel()
         engine = phase_engine(params)
+        lap("engine")
         batch_invariance_probe(params)
         del params
-        paged_timing = phase_paged_timing(engine["pos"])
+        paged_timing = phase_paged_timing(engine["states"])
+        lap("paged timing")
         phase_engine_cuda_vs_cpu()
+        lap("engine cuda vs cpu")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1492,16 +1643,28 @@ def main() -> int:
         f"generate " + ", ".join(f"{r['name']} {r['ms']:.2f} ms (bound "
                                  f"{r['bound_ms']:.3f})" for r in kernels[2:]))
     st, base = engine["bf16"]["stats"], engine["static"]
-    log(f"engine {SERVE_ARCH} (16 slots, paged bf16, {ENGINE_TRACE['n_requests']}"
-        f" requests): {st['useful_tok_s']:.1f} useful tokens/s ("
-        f"{st['raw_tok_s']:.1f} raw, {st['steps']:.0f} steps, "
-        f"{st['elapsed_s']:.2f} s); int8 pool "
-        f"{engine['int8']['stats']['useful_tok_s']:.1f}, agreement "
+    tok_s = {k: [engine[k][s_]["useful_tok_s"]
+                 for s_ in ("stats", "repeat_stats")]
+             for k in ("bf16", "int8")}
+    iso = {k: sum(t[k] for t in paged_timing) / len(paged_timing)
+           for k in ("ms", "int8_ms")}
+    n_paged = kernels[-1]["launches"]
+    log(f"engine {SERVE_ARCH} (16 slots, paged, {ENGINE_TRACE['n_requests']}"
+        f" requests, {st['steps']:.0f} steps): useful tokens/s bf16 "
+        f"{tok_s['bf16'][0]:.1f} and {tok_s['bf16'][1]:.1f}, int8 "
+        f"{tok_s['int8'][0]:.1f} and {tok_s['int8'][1]:.1f} (runs in the "
+        f"order bf16, int8, int8, bf16), agreement "
         f"{engine['int8_agreement']:.4f}; lockstep baseline "
         f"{base['useful_tok_s']:.1f} useful tokens/s; flash_decode_paged "
-        f"{kernels[-1]['ms']:.2f} ms a run (bound "
-        f"{kernels[-1]['bound_ms']:.3f})")
-    log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up")
+        f"over the bf16 run {kernels[-1]['ms']:.2f} ms "
+        f"({kernels[-1]['ms'] / n_paged * 1e3:.1f} us a call; alone on cold "
+        f"pools {iso['ms'] * 1e3:.1f} us), bound "
+        f"{kernels[-1]['bound_ms']:.3f} ms; over the int8 run "
+        f"{engine['int8']['run_profile']['families']['flash_decode_paged']:.2f}"
+        f" ms (alone {iso['int8_ms'] * 1e3:.1f} us a call), bound "
+        f"{engine['int8']['bound'][0]:.3f} ms")
+    log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
+        f" (seconds by part: {took})")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

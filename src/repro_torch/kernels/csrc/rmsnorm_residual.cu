@@ -7,6 +7,8 @@
 //   s = x + r                                 (rounded to the input type)
 //   y = s * rsqrt(mean(s^2) + eps) * scale    (computed in f32, rounded)
 // The norm reads the ROUNDED s, as the Pallas kernel and the oracle do.
+// With no residual (r and s null) it is a plain RMSNorm: s is x, so the
+// kernel reads x and writes y only (4 bytes an element in bf16).
 //
 // No matrix product: the kernel is bound by device-memory bytes, reading x
 // and r once and writing s and y once (8 bytes an element in bf16). One
@@ -24,7 +26,7 @@ using port::from_f;
 using port::to_f;
 using port::Vec16;
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool RES>
 __global__ void rmsnorm_residual_kernel(const T* __restrict__ x,
                                         const T* __restrict__ r,
                                         const float* __restrict__ scale,
@@ -37,22 +39,28 @@ __global__ void rmsnorm_residual_kernel(const T* __restrict__ x,
   if constexpr (VEC) {
     constexpr int V = Vec16<T>::N;
     for (int i = threadIdx.x * V; i < d; i += blockDim.x * V) {
-      float a[V], b[V];
+      float a[V];
       port::load16<T>(x + base + i, a);
-      port::load16<T>(r + base + i, b);
+      if constexpr (RES) {
+        float b[V];
+        port::load16<T>(r + base + i, b);
+#pragma unroll
+        for (int e = 0; e < V; ++e) a[e] = to_f(from_f<T>(a[e] + b[e]));
+        port::store16<T>(s + base + i, a);  // s rounded to T
+      }
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        const float v = to_f(from_f<T>(a[e] + b[e]));  // round s to T
-        a[e] = v;
-        srow[i + e] = v;
-        ss += v * v;
+        srow[i + e] = a[e];
+        ss += a[e] * a[e];
       }
-      port::store16<T>(s + base + i, a);
     }
   } else {
     for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const T sv = from_f<T>(to_f(x[base + i]) + to_f(r[base + i]));
-      s[base + i] = sv;
+      T sv = x[base + i];
+      if constexpr (RES) {
+        sv = from_f<T>(to_f(sv) + to_f(r[base + i]));
+        s[base + i] = sv;
+      }
       const float v = to_f(sv);
       srow[i] = v;
       ss += v * v;
@@ -75,7 +83,7 @@ __global__ void rmsnorm_residual_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
+template <typename T, bool RES>
 int launch(const void* x, const void* r, const float* scale, void* y, void* s,
            int n, int d, float eps, int vec, cudaStream_t stream) {
   const int per_thread = vec ? Vec16<T>::N : 1;
@@ -87,29 +95,41 @@ int launch(const void* x, const void* r, const float* scale, void* y, void* s,
   T* yt = static_cast<T*>(y);
   T* st = static_cast<T*>(s);
   if (vec) {
-    rmsnorm_residual_kernel<T, true><<<n, threads, smem, stream>>>(
+    rmsnorm_residual_kernel<T, true, RES><<<n, threads, smem, stream>>>(
         xt, rt, scale, yt, st, d, eps);
   } else {
-    rmsnorm_residual_kernel<T, false><<<n, threads, smem, stream>>>(
+    rmsnorm_residual_kernel<T, false, RES><<<n, threads, smem, stream>>>(
         xt, rt, scale, yt, st, d, eps);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_any(const void* x, const void* r, const float* scale, void* y,
+               void* s, int n, int d, float eps, int vec,
+               cudaStream_t stream) {
+  if (r != nullptr)
+    return launch<T, true>(x, r, scale, y, s, n, d, eps, vec, stream);
+  return launch<T, false>(x, r, scale, y, s, n, d, eps, vec, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, r, y, s: (n, d) of `dtype`; scale: (d,) f32. vec != 0 requires d to be
-// a multiple of 16 / sizeof(element) and every pointer 16-byte aligned.
+// x, r, y, s: (n, d) of `dtype`; scale: (d,) f32. r and s are both null
+// (no residual: y = rmsnorm(x) * scale) or both set. vec != 0 requires d to
+// be a multiple of 16 / sizeof(element) and every pointer 16-byte aligned.
 int rmsnorm_residual_fwd(const void* x, const void* r, const float* scale,
                          void* y, void* s, int n, int d, float eps, int dtype,
                          int vec, cudaStream_t stream) {
-  if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || d < 1 || (r == nullptr) != (s == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::kF32)
-    return launch<float>(x, r, scale, y, s, n, d, eps, vec, stream);
+    return launch_any<float>(x, r, scale, y, s, n, d, eps, vec, stream);
   if (dtype == port::kBF16)
-    return launch<__nv_bfloat16>(x, r, scale, y, s, n, d, eps, vec, stream);
+    return launch_any<__nv_bfloat16>(x, r, scale, y, s, n, d, eps, vec,
+                                     stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

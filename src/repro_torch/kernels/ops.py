@@ -108,12 +108,14 @@ def flash_decode_paged(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
     return out.reshape(B, 1, H, hd)
 
 
-def rmsnorm_residual(x: Tensor, r: Tensor, scale: Tensor, *,
+def rmsnorm_residual(x: Tensor, r: Optional[Tensor], scale: Tensor, *,
                      eps: float = 1e-6) -> Tuple[Tensor, Tensor]:
-    """(rmsnorm(x + r) * scale, x + r) over (..., d) rows."""
+    """(rmsnorm(x + r) * scale, x + r) over (..., d) rows; ``r=None`` is a
+    zero residual (no add, s is x)."""
     d = x.shape[-1]
-    y, s = _rmsnorm_residual(x.reshape(-1, d).contiguous(),
-                             r.reshape(-1, d).contiguous(), scale, eps=eps)
+    y, s = _rmsnorm_residual(
+        x.reshape(-1, d).contiguous(),
+        None if r is None else r.reshape(-1, d).contiguous(), scale, eps=eps)
     return y.reshape(x.shape), s.reshape(x.shape)
 
 

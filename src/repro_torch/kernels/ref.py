@@ -76,12 +76,12 @@ def gbn_vjp_ref(xg: Tensor, gamma: Tensor, beta: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm_residual_ref(x: Tensor, r: Tensor, scale: Tensor,
+def rmsnorm_residual_ref(x: Tensor, r: Optional[Tensor], scale: Tensor,
                          eps: float = 1e-6) -> Tuple[Tensor, Tensor]:
     """``s = x + r`` (rounded to x.dtype) and ``y = rmsnorm(s) * scale``
     computed in f32 and cast back. x, r: (..., d); scale: (d,). Returns
-    (y, s)."""
-    s = x + r
+    (y, s); ``r=None`` is a zero residual, and s is x."""
+    s = x if r is None else x + r
     sf = s.float()
     var = sf.square().mean(dim=-1, keepdim=True)
     y = sf * torch.rsqrt(var + eps) * scale.float()

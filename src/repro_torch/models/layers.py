@@ -89,13 +89,13 @@ def norm_init(cfg: ModelConfig, d: int, device: torch.device) -> Params:
 def norm_apply(cfg: ModelConfig, params: Params, x: Tensor, *,
                use_kernels: bool = False) -> Tensor:
     """RMSNorm over the model width. With kernels it runs in the fused norm
-    kernel with a zero residual: one block reduces one row in a fixed
-    order, so a row's result does not depend on how many rows the batch
-    holds (torch's mean over d_model splits its reduction by the number of
-    rows, and a last-bit difference there flips a bf16 rounding now and
-    then), which is what lets a ContinuousEngine row equal its solo run."""
+    kernel with no residual: one block reduces one row in a fixed order, so
+    a row's result does not depend on how many rows the batch holds
+    (torch's mean over d_model splits its reduction by the number of rows,
+    and a last-bit difference there flips a bf16 rounding now and then),
+    which is what lets a ContinuousEngine row equal its solo run."""
     if use_kernels:
-        return kops.rmsnorm_residual(x, torch.zeros_like(x), params["scale"],
+        return kops.rmsnorm_residual(x, None, params["scale"],
                                      eps=cfg.norm.eps)[0]
     return rmsnorm_apply(params, x, cfg.norm.eps)
 
@@ -318,8 +318,6 @@ def _paged_decode(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
         kp[page, :, slot] = k[:, 0].to(kp.dtype)
         vp[page, :, slot] = v[:, 0].to(vp.dtype)
     if use_kernels:
-        if not quantized and kp.dtype != q.dtype:
-            kp, vp = kp.to(q.dtype), vp.to(q.dtype)
         return kops.flash_decode_paged(q, kp, vp, pt, posb.int(),
                                        window=window, offsets=offsets,
                                        k_scale=ks_, v_scale=vs_,

@@ -18,6 +18,7 @@ from repro.kernels.flash_decode import (flash_decode_blockwise,
                                         flash_decode_pallas)
 from repro.kernels.fused_norm import rmsnorm_residual_pallas
 from repro.kernels.swiglu import swiglu_pallas
+from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import fused_norm as FN
@@ -57,6 +58,28 @@ def test_rmsnorm_residual_matches_reference(shape):
         yk, sk = rmsnorm_residual_pallas(x, r, scale, interpret=True)
         _close(y, yk, 1e-5)
         _close(s, sk, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(17, 128), (5, 512), (3, 100), (1, 7)])
+def test_rmsnorm_without_residual_matches_reference(shape, dtype):
+    """``r=None``: the wrapper's plain RMSNorm equals the JAX package's
+    ``rmsnorm_apply`` (the pre-attention and final norms) and the fused
+    norm with a zero residual; s is x itself."""
+    N, d = shape
+    rng = np.random.RandomState(N * d)
+    x = _randn(rng, N, d)
+    scale = np.linspace(0.5, 1.5, d, dtype=np.float32)
+    xt = torch.tensor(x).to(getattr(torch, dtype))
+    y, s = FN.rmsnorm_residual(xt, None, torch.tensor(scale))
+    assert s is xt
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    want = jlayers.rmsnorm_apply({"scale": jnp.asarray(scale)}, xj)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _close(y.float(), np.asarray(want, np.float32), tol)
+    yz, _ = tops.rmsnorm_residual(xt, torch.zeros_like(xt),
+                                  torch.tensor(scale))
+    assert torch.equal(y, yz)
 
 
 def test_rmsnorm_residual_bf16_plain_matches_reference():

@@ -286,6 +286,26 @@ def test_cuda_rmsnorm_residual_matches_plain(shape, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape", [(17, 128), (64, 2048), (5, 100), (3, 7)])
+def test_cuda_rmsnorm_without_residual_matches_plain(shape, dtype):
+    """``r=None``: within tolerance of the plain version, bit-equal to the
+    kernel with a zero residual, s is x, one launch."""
+    gen = _on_card()
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    scale = torch.linspace(0.5, 1.5, shape[1], device="cuda")
+    FN.reset_launches()
+    y, s = FN.rmsnorm_residual(x, None, scale)
+    assert s is x
+    assert FN.launches == {"rmsnorm_residual": 1}
+    want, _ = tref.rmsnorm_residual_ref(x, None, scale)
+    tol = _bf16_tol(dtype)
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(y, FN.rmsnorm_residual(x, torch.zeros_like(x),
+                                              scale)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
 @pytest.mark.parametrize("shape", [(9, 128, 256), (33, 256, 384),
                                    (5, 100, 72), (130, 64, 200)])
 def test_cuda_swiglu_matches_plain(shape, dtype):
@@ -361,7 +381,8 @@ def test_cuda_flash_decode_matches_plain(B, H, KV, S, hd, window, ring, offs,
                                      offsets=off, rope_theta=theta)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-    assert FD.launches["flash_decode"] == len(positions)
+    assert FD.launches == {"flash_decode": len(positions),
+                           "flash_decode_paged": 0}
 
 
 @pytest.mark.gpu
