@@ -61,13 +61,38 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    ``run_static_trace`` (the lockstep baseline, batch 16);
 11. reduced qwen3 in f32 through ContinuousEngine on the card (kernels)
    and the CPU (plain versions), full-precision and int8 pools: equal
-   completions.
+   completions;
+12. each training kernel (rmsnorm_residual_backward, swiglu_backward,
+   flash_attention_rope, flash_attention_backward) against its plain
+   version on the card: at the full-width qwen3-1.7b shapes of phase 13
+   in bf16 (BF16_TOL) and at small f32 shapes (the reference tests'
+   tolerances), with ragged T, a window, GQA and the norm without a
+   residual; each autograd Function's gradients against plain autograd
+   through the plain forward; device times of kernel, plain version and
+   one library call (CUDA events), and the bound;
+13. full-width qwen3-1.7b training in bf16 (random weights from
+   SERVE_SEED, f32 momentum): make_lm_train_step(use_kernels=True) on B=8
+   rows of T=512 from token_lm, one warm and five timed steps on the same
+   batch. The launch counters of a step must show 57 rmsnorm_residual and
+   57 rmsnorm_residual_backward, 28 of each of swiglu, swiglu_backward,
+   flash_attention_rope and flash_attention_backward, and no
+   flash_attention or decode launch; the loss must be finite and fall; a
+   remat=True step from the same state must give the same loss and
+   parameters within BF16_TOL. Step ms, tokens/s, peak memory, and one
+   profiled step by kernel family, whose kernel counts must match the
+   counters;
+14. reduced qwen3 in f32: one train step on the card (kernels) against
+   the same step on the CPU (plain versions) from the same parameters:
+   loss within LOSS_TOL, parameters within TOL.
 
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, the paged
 decode per bf16 engine run: its ms from the profiled run, its plain and
 library ms from phase 9's per-call times, its bound from every launch's
-positions); the last is ``{"ok": true, "device": {...}}``.
+positions; the training kernels per train step: ms from the profiled
+step, plain and library ms from phase 12's per-call times, taken with
+CUDA events). The last line is
+``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -499,6 +524,27 @@ def bound(nbytes: float, flops: float, peak: float):
                                        else "operations")
 
 
+def time_row(name, key, kern, plain, library, work, timer=None):
+    """ms a call of a kernel, its plain version and one library call (a
+    yardstick the port never calls; None if it fails), and the bound from
+    ``work`` = (bytes, operations, peak). ``timer`` defaults to the
+    profiler's device time (``kernel_ms``); ``time_ms`` takes CUDA events
+    around back-to-back calls instead."""
+    timer = timer or kernel_ms
+    row = {"ms": timer(kern), "plain_ms": timer(plain)}
+    try:
+        row["library_ms"] = timer(library)
+    except Exception as e:
+        log(f"  library yardstick of {name} failed: {e!r}")
+        row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = bound(*work)
+    row["work"] = work
+    log(f"  timing {name} {key}: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in row.items() if k != "work"}))
+    return row
+
+
 def norm_work(N, d, esize=2, residual=True):
     # read x (and r), scale; write y (and s); ~5 f32 ops an element
     return esize * (4 if residual else 2) * N * d + 4 * d, 5.0 * N * d, \
@@ -563,18 +609,7 @@ def phase_serving_kernels():
         out[name]["err"] = max(out[name]["err"], e)
 
     def timed(name, key, kern, plain, library, work):
-        row = {"ms": kernel_ms(kern), "plain_ms": kernel_ms(plain)}
-        try:     # a yardstick only: the port never calls it
-            row["library_ms"] = kernel_ms(library)
-        except Exception as e:
-            log(f"  library yardstick of {name} failed: {e!r}")
-            row["library_ms"] = None
-        row["bound_ms"], row["bound_by"] = bound(*work)
-        row["work"] = work
-        out[name][key] = row
-        log(f"  timing {name} {key}: " + json.dumps(
-            {k: (round(v, 4) if isinstance(v, float) else v)
-             for k, v in row.items() if k != "work"}))
+        out[name][key] = time_row(name, key, kern, plain, library, work)
 
     # rmsnorm_residual -------------------------------------------------------
     log("kernel check rmsnorm_residual")
@@ -707,6 +742,7 @@ def ragged_prompts(vocab: int, seed: int):
 
 
 def serving_launches():
+    """Every launch counter of the decoder kernels (serving and training)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import fused_norm as FN
@@ -725,8 +761,10 @@ def reset_serving_launches():
 
 def family(name: str) -> str:
     n = name.lower()
-    for fam in ("flash_decode_paged", "flash_decode", "flash_fwd", "swiglu",
-                "rmsnorm_residual"):
+    if "rmsnorm_residual_bwd" in n or "rmsnorm_residual_dscale" in n:
+        return "rmsnorm_residual_bwd"
+    for fam in ("flash_decode_paged", "flash_decode", "flash_fwd",
+                "flash_bwd", "swiglu_bwd", "swiglu", "rmsnorm_residual"):
         if fam in n:
             return fam
     if any(s in n for s in ("gemm", "gemv", "sm90", "cutlass", "xmma",
@@ -781,7 +819,9 @@ def phase_serve(params):
     # norm of each layer, and the final norm
     want = {"flash_attention": L, "flash_decode": L * (n - 1),
             "flash_decode_paged": 0, "rmsnorm_residual": (2 * L + 1) * n,
-            "swiglu": L * n}
+            "swiglu": L * n, "flash_attention_rope": 0,
+            "flash_attention_backward": 0, "rmsnorm_residual_backward": 0,
+            "swiglu_backward": 0}
     log(f"  generate: out {tuple(out.shape)} wall {wall * 1e3:.1f} ms "
         f"({SERVE_B * n / wall:.1f} new tokens/s end to end), peak memory "
         f"{peak:.2f} GiB; launches {launches}")
@@ -1562,6 +1602,512 @@ def gbn_rows(rows, launches, errs):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# LM training: qwen3-1.7b make_lm_train_step (B4, B6, B7, B8, and the
+# forward kernels B3, B5 under their autograd Functions)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T = 8, 512            # rows of token_lm, 4096 tokens a step
+TRAIN_STEPS = 5                      # timed, after one warm step
+TRAIN_SEED = 5
+TRAIN_LR = 0.5
+TRAIN_KERNELS = {
+    # name: (source, TPU kernel it replaces, tolerance of its small f32
+    # check (the reference tests' own: tests/test_fused_kernels.py,
+    # tests/test_kernels.py), profiler family of its kernels, kernels one
+    # wrapper call launches)
+    "rmsnorm_residual_backward": ("rmsnorm_residual.cu",
+                                  "src/repro/kernels/fused_norm.py:105",
+                                  1e-5, "rmsnorm_residual_bwd", 2),
+    "swiglu_backward": ("swiglu_bwd.cu", "src/repro/kernels/swiglu.py:115",
+                        1e-4, "swiglu_bwd", 2),
+    "flash_attention_rope": ("flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:278",
+                             2e-5, "flash_fwd", 1),
+    "flash_attention_backward": ("flash_attention_bwd.cu",
+                                 "src/repro/kernels/flash_attention.py:509",
+                                 5e-4, "flash_bwd", 3),
+}
+
+
+def norm_bwd_work(N, d, esize=2, residual=True):
+    # read s, dy (and ds), scale; write dx, dscale; ~10 f32 ops an element
+    return (esize * (4 if residual else 3) * N * d + 8 * d, 10.0 * N * d,
+            F32_FLOPS)
+
+
+def swiglu_bwd_work(N, d, F, esize=2):
+    # read x, wg, wu, g, dh; write dg, du and dx (f32); the recompute
+    # u = x wu and dx = dg wg^T + du wu^T: three products of 2 N d F
+    return (esize * (N * d + 2 * d * F + 4 * N * F) + 4 * N * d,
+            6.0 * N * d * F, BF16_FLOPS)
+
+
+def causal_pairs(B, T):
+    return B * T * (T + 1) // 2
+
+
+def attn_rope_work(B, H, KV, T, hd, esize=2):
+    # read q, k, v, pos; write o, lse; QK^T and PV over the causal pairs
+    nbytes = esize * (2 * B * H * T * hd + 2 * B * KV * T * hd) \
+        + 4 * B * T + 4 * B * H * T
+    return nbytes, 4.0 * hd * H * causal_pairs(B, T), BF16_FLOPS
+
+
+def attn_bwd_work(B, H, KV, T, hd, esize=2):
+    # read q, o, do, k, v, lse; write dq, dk, dv; five products over the
+    # causal pairs (q k^T, do v^T, p^T do, ds k, ds^T q)
+    nbytes = esize * (4 * B * H * T * hd + 4 * B * KV * T * hd) \
+        + 4 * B * H * T
+    return nbytes, 10.0 * hd * H * causal_pairs(B, T), BF16_FLOPS
+
+
+def phase_train_kernels():
+    """Phase 12: each training kernel against its plain version on the
+    card, at the full-width shapes of the train step in bf16 (BF16_TOL) and
+    at small f32 shapes (the reference's tolerances), with ragged T, a
+    window, GQA and the norm without a residual; each autograd Function's
+    gradients against plain autograd through the plain forward (f32); device
+    times of kernel, plain version and one library call, and the bound, at
+    the step's shapes. Returns {name: {"err": .., key: row}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import swiglu as SW
+    cfg = get_config(SERVE_ARCH)
+    d, Fh, H, KV, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim)
+    B, T = TRAIN_B, TRAIN_T
+    N = B * T
+    theta = cfg.rope_theta
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    randn = lambda *s, dt=torch.bfloat16, sc=1.0: (  # noqa: E731
+        sc * torch.randn(*s, generator=gen, device="cuda")).to(dt)
+    out = {k: {"err": 0.0} for k in TRAIN_KERNELS}
+
+    def record(name, label, got, want, tol):
+        e = check_close(f"{name} {label}", got.float(), want.float(), tol)
+        out[name]["err"] = max(out[name]["err"], e)
+
+    def record_sum(name, label, got, want, tol):
+        e = check_sum(f"{name} {label}", got, want, tol)
+        out[name]["err"] = max(out[name]["err"], e)
+
+    def timed(name, key, kern, plain, library, work):
+        # CUDA events: in these isolated calls the profiler dropped kernels
+        # (swiglu_backward once read 2.4 ms, above the f32 FMA peak, and
+        # SDPA's forward below its byte bound)
+        out[name][key] = time_row(name, key, kern, plain, library, work,
+                                  timer=time_ms)
+
+    def positions(Bq, Tq):
+        return (torch.arange(Tq, device="cuda")[None]
+                + 3 * torch.arange(Bq, device="cuda")[:, None]).float()
+
+    # B4: rmsnorm_residual backward ------------------------------------------
+    name = "rmsnorm_residual_backward"
+    tol32 = TRAIN_KERNELS[name][2]
+    log(f"kernel check {name}")
+    scale = torch.linspace(0.5, 1.5, d, device="cuda")
+    s, dy, ds = (randn(N, d) for _ in range(3))
+    for key, dsv in (("residual", ds), ("no residual", None)):
+        dx, dsc = FN.rmsnorm_residual_backward(s, scale, dy, dsv)
+        rdx, rdsc = ref.rmsnorm_residual_backward_ref(s, scale, dy, dsv)
+        record(name, f"({N}, {d}) bf16 {key} dx", dx, rdx, BF16_TOL)
+        record_sum(name, f"({N}, {d}) bf16 {key} dscale", dsc, rdsc,
+                   BF16_TOL)
+        sg = s.detach().requires_grad_(True)
+        wg_ = scale.bfloat16().requires_grad_(True)
+        yl = F.rms_norm(sg, (d,), wg_, 1e-6)
+        timed(name, key,
+              lambda dsv=dsv: FN.rmsnorm_residual_backward(s, scale, dy, dsv),
+              lambda dsv=dsv: ref.rmsnorm_residual_backward_ref(s, scale, dy,
+                                                                dsv),
+              lambda yl=yl, sg=sg, wg_=wg_: torch.autograd.grad(
+                  yl, (sg, wg_), dy, retain_graph=True),
+              norm_bwd_work(N, d, residual=dsv is not None))
+        del sg, wg_, yl
+    for (n_, d_), res in (((17, 128), True), ((33, 256), False),
+                          ((5, 100), True)):
+        s2, dy2, ds2 = (randn(n_, d_, dt=torch.float32) for _ in range(3))
+        sc2 = torch.linspace(0.5, 1.5, d_, device="cuda")
+        ds2 = ds2 if res else None
+        got = FN.rmsnorm_residual_backward(s2, sc2, dy2, ds2)
+        want = ref.rmsnorm_residual_backward_ref(s2, sc2, dy2, ds2)
+        label = f"({n_}, {d_}) f32{'' if res else ' no residual'}"
+        record(name, label + " dx", got[0], want[0], tol32)
+        record_sum(name, label + " dscale", got[1], want[1], tol32)
+    del s, dy, ds
+
+    # B6: swiglu backward ------------------------------------------------------
+    name = "swiglu_backward"
+    log(f"kernel check {name}")
+    x = randn(N, d)
+    wg, wu = randn(d, Fh, sc=d ** -0.5), randn(d, Fh, sc=d ** -0.5)
+    dh = randn(N, Fh)
+    g = ref.swiglu_ref(x, wg, wu)[1]
+    got = SW.swiglu_backward(x, wg, wu, g, dh)
+    want = ref.swiglu_backward_ref(x, wg, wu, g, dh)
+    for lab, a, b in zip(("dx", "dg", "du"), got, want):
+        record(name, f"({N}, {d}->{Fh}) bf16 {lab}", a, b, BF16_TOL)
+    del got, want
+
+    def swiglu_library():
+        # the three cuBLAS products and the elementwise part, in bf16
+        u = x @ wu
+        sig = torch.sigmoid(g)
+        du_ = dh * g * sig
+        dg_ = dh * u * sig * (1 + g * (1 - sig))
+        return dg_ @ wg.T + du_ @ wu.T
+
+    timed(name, N, lambda: SW.swiglu_backward(x, wg, wu, g, dh),
+          lambda: ref.swiglu_backward_ref(x, wg, wu, g, dh), swiglu_library,
+          swiglu_bwd_work(N, d, Fh))
+    x2 = randn(33, 256, dt=torch.float32)
+    w1, w2 = (randn(256, 384, dt=torch.float32, sc=1 / 16) for _ in range(2))
+    dh2 = randn(33, 384, dt=torch.float32)
+    g2 = ref.swiglu_ref(x2, w1, w2)[1]
+    for lab, a, b in zip(("dx", "dg", "du"),
+                         SW.swiglu_backward(x2, w1, w2, g2, dh2),
+                         ref.swiglu_backward_ref(x2, w1, w2, g2, dh2)):
+        record(name, f"(33, 256->384) f32 {lab}", a, b,
+               TRAIN_KERNELS[name][2])
+    del x, wg, wu, dh, g
+
+    # B7: RoPE flash attention forward -----------------------------------------
+    name = "flash_attention_rope"
+    log(f"kernel check {name}")
+    q = randn(B, H, T, hd)
+    k, v = randn(B, KV, T, hd), randn(B, KV, T, hd)
+    pos = torch.arange(T, device="cuda").float()[None].expand(B, T) \
+        .contiguous()
+    o, lse = FA.flash_attention_rope_fwd(q, k, v, pos, theta=theta,
+                                         return_lse=True)
+    ro, rlse = ref.attention_rope_ref(q, k, v, pos, theta=theta,
+                                      return_lse=True)
+    record(name, f"B={B} H={H} KV={KV} T={T} hd={hd} causal bf16 o", o, ro,
+           BF16_TOL)
+    record(name, "  the same, lse", lse, rlse, BF16_TOL)
+    qr, kr = ref.rope_rotate_hm(q, pos, theta), ref.rope_rotate_hm(k, pos,
+                                                                   theta)
+    timed(name, T,
+          lambda: FA.flash_attention_rope_fwd(q, k, v, pos, theta=theta,
+                                              return_lse=True),
+          lambda: ref.attention_rope_ref(q, k, v, pos, theta=theta,
+                                         return_lse=True),
+          lambda: F.scaled_dot_product_attention(qr, kr, v, is_causal=True,
+                                                 enable_gqa=True),
+          attn_rope_work(B, H, KV, T, hd))
+    for (b_, h_, kv_, t_, hd_), window in (((2, 4, 2, 100, 64), 13),
+                                           ((1, 2, 2, 17, 32), None),
+                                           ((1, 8, 2, 130, 128), None)):
+        qs = randn(b_, h_, t_, hd_, dt=torch.float32)
+        ks_, vs_ = (randn(b_, kv_, t_, hd_, dt=torch.float32)
+                    for _ in range(2))
+        ps = positions(b_, t_)
+        go, gl = FA.flash_attention_rope_fwd(qs, ks_, vs_, ps, theta=1e4,
+                                             window=window, return_lse=True)
+        wo, wl = ref.attention_rope_ref(qs, ks_, vs_, ps, theta=1e4,
+                                        window=window, return_lse=True)
+        label = f"({b_}, {h_}, {kv_}, {t_}, {hd_}) f32 window {window}"
+        record(name, label + " o", go, wo, TRAIN_KERNELS[name][2])
+        record(name, label + " lse", gl, wl, TRAIN_KERNELS[name][2])
+
+    # B8: flash attention backward ---------------------------------------------
+    name = "flash_attention_backward"
+    tol32 = TRAIN_KERNELS[name][2]
+    log(f"kernel check {name}")
+    do = randn(B, H, T, hd)
+    o, lse = ref.attention_ref(qr, kr, v, return_lse=True)
+    got = FA.flash_attention_backward(qr, kr, v, o, lse, do)
+    want = ref.attention_backward_ref(qr, kr, v, o, lse, do)
+    for lab, a, b in zip(("dq", "dk", "dv"), got, want):
+        record(name, f"B={B} H={H} KV={KV} T={T} hd={hd} causal bf16 {lab}",
+               a, b, BF16_TOL)
+    del got, want
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (qr, kr, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                        enable_gqa=True)
+    timed(name, T,
+          lambda: FA.flash_attention_backward(qr, kr, v, o, lse, do),
+          lambda: ref.attention_backward_ref(qr, kr, v, o, lse, do),
+          lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                      retain_graph=True),
+          attn_bwd_work(B, H, KV, T, hd))
+    del ql, kl, vl, ol, q, k, v, qr, kr, o, lse, do
+    for (b_, h_, kv_, t_, hd_), causal, window in (
+            ((2, 4, 2, 100, 64), True, 13), ((1, 8, 1, 128, 64), False, None),
+            ((1, 2, 2, 17, 32), True, None), ((1, 4, 2, 130, 128), True,
+                                              None)):
+        qs, dos = (randn(b_, h_, t_, hd_, dt=torch.float32)
+                   for _ in range(2))
+        ks_, vs_ = (randn(b_, kv_, t_, hd_, dt=torch.float32)
+                    for _ in range(2))
+        os_, ls_ = ref.attention_ref(qs, ks_, vs_, causal=causal,
+                                     window=window, return_lse=True)
+        label = (f"({b_}, {h_}, {kv_}, {t_}, {hd_}) f32 causal {causal} "
+                 f"window {window}")
+        for lab, a, b in zip(
+                ("dq", "dk", "dv"),
+                FA.flash_attention_backward(qs, ks_, vs_, os_, ls_, dos,
+                                            causal=causal, window=window),
+                ref.attention_backward_ref(qs, ks_, vs_, os_, ls_, dos,
+                                           causal=causal, window=window)):
+            record(name, f"{label} {lab}", a, b, tol32)
+
+    # the autograd Functions against plain autograd of the plain forward ------
+    log("autograd Functions vs plain autograd (f32)")
+
+    def grads(fn, inputs, cots):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(
+            sum((a * c).sum() for a, c in zip(outs, cots)), leaves)
+
+    def check_fn(name, label, kern, plain, inputs, cots):
+        for i, (a, b) in enumerate(zip(grads(kern, inputs, cots),
+                                       grads(plain, inputs, cots))):
+            record(name, f"Function {label} grad {i}", a, b,
+                   TRAIN_KERNELS[name][2])
+
+    xa, ra, dya, dsa = (randn(33, 256, dt=torch.float32) for _ in range(4))
+    sca = torch.linspace(0.5, 1.5, 256, device="cuda")
+    check_fn("rmsnorm_residual_backward", "rmsnorm_residual",
+             lambda a, b, c: ops.rmsnorm_residual(a, b, c),
+             lambda a, b, c: ref.rmsnorm_residual_ref(a, b, c),
+             (xa, ra, sca), (dya, dsa))
+    check_fn("rmsnorm_residual_backward", "rmsnorm (no residual)",
+             lambda a, c: ops.rmsnorm_residual(a, None, c)[0],
+             lambda a, c: ref.rmsnorm_residual_ref(a, None, c)[0],
+             (xa, sca), (dya,))
+    wa, wb = (randn(256, 384, dt=torch.float32, sc=1 / 16) for _ in range(2))
+    check_fn("swiglu_backward", "swiglu", ops.swiglu,
+             lambda a, b, c: ref.swiglu_ref(a, b, c)[0], (xa, wa, wb),
+             (randn(33, 384, dt=torch.float32),))
+    qa, doa = (randn(2, 100, 4, 64, dt=torch.float32) for _ in range(2))
+    ka, va = (randn(2, 100, 2, 64, dt=torch.float32) for _ in range(2))
+    pa = positions(2, 100)
+    check_fn("flash_attention_backward", "flash_attention_rope window 13",
+             lambda a, b, c: ops.flash_attention_rope(a, b, c, pa, theta=1e4,
+                                                      window=13),
+             lambda a, b, c: ref.attention_rope_ref(
+                 a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2), pa,
+                 theta=1e4, window=13).transpose(1, 2),
+             (qa, ka, va), (doa,))
+    check_fn("flash_attention_backward", "flash_attention (no offsets)",
+             lambda a, b, c: ops.flash_attention(a, b, c),
+             lambda a, b, c: ref.attention_ref(
+                 a.transpose(1, 2), b.transpose(1, 2),
+                 c.transpose(1, 2)).transpose(1, 2),
+             (qa, ka, va), (doa,))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train():
+    """Phase 13: full-width qwen3-1.7b training in bf16 (random weights from
+    SERVE_SEED, f32 momentum): make_lm_train_step(use_kernels=True) on B=8
+    rows of T=512 from token_lm, one warm step and TRAIN_STEPS timed steps
+    on the repeated batch. The launch counters of a step must read exactly
+    57 rmsnorm_residual (forward and backward), 28 of each of swiglu,
+    swiglu_backward, flash_attention_rope and flash_attention_backward, and
+    no flash_attention or decode launch; the loss must be finite and fall;
+    a remat=True step from the same state must give the same loss and
+    parameters within BF16_TOL. Step ms, tokens/s, peak memory and one
+    profiled step by kernel family."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.data import lm_sequences, token_lm
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import make_lm_train_step
+    cfg = get_config(SERVE_ARCH)
+    L = cfg.n_layers
+    params = serve_params()
+    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
+                                 n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
+    batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
+    lb = LargeBatchConfig(batch_size=TRAIN_B, base_batch_size=TRAIN_B,
+                          grad_clip=1.0)
+    regime = Regime(base_lr=TRAIN_LR, total_steps=100, drop_every=100)
+    step_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True)
+    state = (params, sgd.init(params))
+    del params
+    want = {"rmsnorm_residual": 2 * L + 1,
+            "rmsnorm_residual_backward": 2 * L + 1, "swiglu": L,
+            "swiglu_backward": L, "flash_attention_rope": L,
+            "flash_attention_backward": L, "flash_attention": 0,
+            "flash_decode": 0, "flash_decode_paged": 0}
+    losses, times, launches = [], [], None
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:      # only this step's input state is held here
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_serving_launches()
+        if i == TRAIN_STEPS:
+            prev = state        # the last step's input, for the remat step
+        t0 = time.perf_counter()
+        p2, o2, m = step_fn(*state, batch, i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            launches = serving_launches()
+        losses.append(m["loss"])
+        state = (p2, o2)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak, step_peak = peak_bytes / 2 ** 30, (peak_bytes - base) / 2 ** 30
+    losses = torch.stack(losses).tolist()
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    tok_s = TRAIN_B * TRAIN_T / step_ms * 1e3
+    log(f"  train {SERVE_ARCH} bf16 B={TRAIN_B} T={TRAIN_T} lr {TRAIN_LR}: "
+        f"step ms {[round(t, 1) for t in times]} (first is the warm step), "
+        f"median {step_ms:.1f} ms, {tok_s:.0f} tokens/s, peak memory "
+        f"{peak:.2f} GiB ({step_peak:.2f} above the step's input state); "
+        f"losses {[round(x, 4) for x in losses]}; launches "
+        f"a step {launches}")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+    # remat: the last step again from its input state, blocks recomputed
+    remat_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True,
+                                  remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # also holds the last output
+    rp, _, rm = remat_fn(*prev, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    remat_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    diff, bad = 0.0, []
+    for i, (a, b) in enumerate(zip(tree.leaves(rp), tree.leaves(state[0]))):
+        a, b = a.float(), b.float()
+        diff = max(diff, float((a - b).abs().max()))
+        if bool(((a - b).abs() > BF16_TOL + BF16_TOL * b.abs()).any()):
+            bad.append(i)
+    loss_diff = abs(float(rm["loss"]) - losses[-1])
+    log(f"  remat step: loss {float(rm['loss']):.6f} vs {losses[-1]:.6f} "
+        f"(diff {loss_diff:.3e}), largest parameter difference {diff:.3e}, "
+        f"peak memory {remat_peak:.2f} GiB above its input state (plain "
+        f"step {step_peak:.2f})")
+    if bad or loss_diff > BF16_TOL * (1 + abs(losses[-1])):
+        raise AssertionError(f"remat step differs: loss {loss_diff}, "
+                             f"leaves {bad[:8]}")
+    del rp, rm, prev
+
+    # where the time goes: one profiled step (its output is dropped)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(*state, batch, TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy, kernels = profile_device_ms(
+        lambda: step_fn(*state, batch, TRAIN_STEPS + 1), reps=1)
+    fam, calls = {}, {}
+    for t, count, kname in kernels:
+        f = family(kname)
+        fam[f] = fam.get(f, 0.0) + t
+        calls[f] = calls.get(f, 0) + count
+    busy = busy or 0.0
+    log(f"  profile train step: device ms by family "
+        f"{ {k: round(v, 3) for k, v in sorted(fam.items())} } (launches "
+        f"{dict(sorted(calls.items()))}); busy {busy:.1f} ms of a "
+        f"{host_ms:.1f} ms step (idle share {1 - busy / host_ms:.3f})")
+    for t, count, kname in sorted(kernels, reverse=True)[:10]:
+        log(f"    {t:9.3f} ms  x{count:<4d} {kname[:80]}")
+    # the profiled step ran the training kernels as the counters say
+    for name, (*_, fam_name, per_call) in TRAIN_KERNELS.items():
+        if calls.get(fam_name, 0) != per_call * launches[name]:
+            raise AssertionError(f"profiled {fam_name} kernels "
+                                 f"{calls.get(fam_name)}, want "
+                                 f"{per_call} x {launches[name]}")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "times": times,
+            "tok_s": tok_s, "peak_gib": peak, "step_peak_gib": step_peak,
+            "remat_peak_gib": remat_peak, "losses": losses,
+            "remat_diff": diff,
+            "breakdown": {"host_ms": host_ms, "busy_ms": busy,
+                          "families": fam, "calls": calls}}
+
+
+def phase_train_cuda_vs_cpu():
+    """Phase 14: reduced qwen3 in f32, one make_lm_train_step step on the
+    card (kernels) and on the CPU (plain versions) from the same
+    parameters: loss within LOSS_TOL, parameters within TOL."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import make_lm_train_step
+    cfg = dataclasses.replace(get_config(SERVE_ARCH + "-reduced"),
+                              dtype="float32")
+    p_cpu = TT.init_params(3, cfg, device="cpu")
+    p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+    g = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 100), generator=g)
+    lb = LargeBatchConfig(batch_size=4, base_batch_size=4, grad_clip=1.0)
+    regime = Regime(base_lr=0.05, total_steps=10, drop_every=10)
+    outs = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        step = make_lm_train_step(cfg, lb, regime, use_kernels=dev == "cuda")
+        p2, _, m = step(p, sgd.init(p), {"tokens": tokens.to(dev)}, 0)
+        outs[dev] = (float(m["loss"]), [t.cpu() for t in tree.leaves(p2)])
+    log(f"train cuda vs cpu: {cfg.name} f32, B=4 T=100, one step: loss "
+        f"{outs['cuda'][0]:.7f} vs {outs['cpu'][0]:.7f}")
+    check_close("train step loss", torch.tensor(outs["cuda"][0]),
+                torch.tensor(outs["cpu"][0]), LOSS_TOL)
+    err = max(max_err(a, b) for a, b in zip(outs["cuda"][1], outs["cpu"][1]))
+    check_close("train step params",
+                torch.cat([t.reshape(-1) for t in outs["cuda"][1]]),
+                torch.cat([t.reshape(-1) for t in outs["cpu"][1]]), TOL)
+    return err
+
+
+def train_rows(kern, train):
+    """One JSON row per training kernel, per train step: ms is the device
+    time of its kernels in the profiled step (every launch, inputs where
+    the step leaves them); plain and library ms are per-call times at the
+    step's shapes (phase 12, repeated inputs) times the calls (the norm
+    backward: L calls with a residual cotangent and L + 1 without); the
+    bound from the total bytes and operations of those calls."""
+    from repro_torch.configs import get_config
+    L = get_config(SERVE_ARCH).n_layers
+    rows = []
+    for name, (src, replaces, _, fam_name, _) in TRAIN_KERNELS.items():
+        k = kern[name]
+        if name == "rmsnorm_residual_backward":
+            parts = [(k["residual"], L), (k["no residual"], L + 1)]
+        elif name == "swiglu_backward":
+            parts = [(k[TRAIN_B * TRAIN_T], L)]
+        else:
+            parts = [(k[TRAIN_T], L)]
+        tot = {f: sum(r[f] * c for r, c in parts) for f in ("ms", "plain_ms")}
+        nbytes = sum(r["work"][0] * c for r, c in parts)
+        flops = sum(r["work"][1] * c for r, c in parts)
+        bms, by = bound(nbytes, flops, parts[0][0]["work"][2])
+        lib = [r["library_ms"] for r, _ in parts]
+        in_step = train["breakdown"]["families"][fam_name]
+        log(f"  {name}: {in_step:.3f} ms in the profiled step, "
+            f"{tot['ms']:.3f} ms from its alone per-call times")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": train["launches"][name],
+            "max_abs_err": k["err"], "ms": in_step,
+            "plain_ms": tot["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": (None if None in lib else
+                           sum(r["library_ms"] * c for r, c in parts))})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1625,30 +2171,40 @@ def main() -> int:
         lap("paged timing")
         phase_engine_cuda_vs_cpu()
         lap("engine cuda vs cpu")
+        # slice 4: LM training
+        train_kern = phase_train_kernels()
+        lap("train kernels")
+        train = phase_lm_train()
+        lap("train")
+        phase_train_cuda_vs_cpu()
+        lap("train cuda vs cpu")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    kernels = gbn_rows(rows, launches, errs) + serving_rows(kern, serve) \
-        + [paged_row(paged_err, engine, paged_timing)]
+    gbn = gbn_rows(rows, launches, errs)
+    serving = serving_rows(kern, serve)
+    paged = paged_row(paged_err, engine, paged_timing)
+    training = train_rows(train_kern, train)
+    kernels = gbn + serving + [paged] + training
     log(f"resnet44 step (B={BATCH}): median warm step {step_ms:.2f} ms; "
-        f"GBN kernels {kernels[0]['ms'] + kernels[1]['ms']:.3f} ms a step "
-        f"(bound {kernels[0]['bound_ms'] + kernels[1]['bound_ms']:.3f} ms)")
+        f"GBN kernels {gbn[0]['ms'] + gbn[1]['ms']:.3f} ms a step "
+        f"(bound {gbn[0]['bound_ms'] + gbn[1]['bound_ms']:.3f} ms)")
     log(f"serve {SERVE_ARCH} (B={SERVE_B}, P={SERVE_P} ragged, {SERVE_NEW} "
         f"new tokens): generate {serve['wall_ms']:.1f} ms, prefill "
         f"{serve['prefill_ms']:.2f} ms, decode {serve['decode_ms']:.3f} ms "
         f"a step, {SERVE_B * SERVE_NEW / serve['wall_ms'] * 1e3:.1f} new "
         f"tokens/s, peak {serve['peak_gib']:.2f} GiB; serving kernels per "
         f"generate " + ", ".join(f"{r['name']} {r['ms']:.2f} ms (bound "
-                                 f"{r['bound_ms']:.3f})" for r in kernels[2:]))
+                                 f"{r['bound_ms']:.3f})" for r in serving))
     st, base = engine["bf16"]["stats"], engine["static"]
     tok_s = {k: [engine[k][s_]["useful_tok_s"]
                  for s_ in ("stats", "repeat_stats")]
              for k in ("bf16", "int8")}
     iso = {k: sum(t[k] for t in paged_timing) / len(paged_timing)
            for k in ("ms", "int8_ms")}
-    n_paged = kernels[-1]["launches"]
+    n_paged = paged["launches"]
     log(f"engine {SERVE_ARCH} (16 slots, paged, {ENGINE_TRACE['n_requests']}"
         f" requests, {st['steps']:.0f} steps): useful tokens/s bf16 "
         f"{tok_s['bf16'][0]:.1f} and {tok_s['bf16'][1]:.1f}, int8 "
@@ -1656,13 +2212,20 @@ def main() -> int:
         f"order bf16, int8, int8, bf16), agreement "
         f"{engine['int8_agreement']:.4f}; lockstep baseline "
         f"{base['useful_tok_s']:.1f} useful tokens/s; flash_decode_paged "
-        f"over the bf16 run {kernels[-1]['ms']:.2f} ms "
-        f"({kernels[-1]['ms'] / n_paged * 1e3:.1f} us a call; alone on cold "
+        f"over the bf16 run {paged['ms']:.2f} ms "
+        f"({paged['ms'] / n_paged * 1e3:.1f} us a call; alone on cold "
         f"pools {iso['ms'] * 1e3:.1f} us), bound "
-        f"{kernels[-1]['bound_ms']:.3f} ms; over the int8 run "
+        f"{paged['bound_ms']:.3f} ms; over the int8 run "
         f"{engine['int8']['run_profile']['families']['flash_decode_paged']:.2f}"
         f" ms (alone {iso['int8_ms'] * 1e3:.1f} us a call), bound "
         f"{engine['int8']['bound'][0]:.3f} ms")
+    log(f"train {SERVE_ARCH} (bf16, B={TRAIN_B}, T={TRAIN_T}): median step "
+        f"{train['step_ms']:.1f} ms, {train['tok_s']:.0f} tokens/s, peak "
+        f"{train['peak_gib']:.2f} GiB ({train['step_peak_gib']:.2f} above "
+        f"the step's input state; remat {train['remat_peak_gib']:.2f}); "
+        f"training kernels per step " + ", ".join(
+            f"{r['name']} {r['ms']:.2f} ms (bound {r['bound_ms']:.3f})"
+            for r in training))
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
         f" (seconds by part: {took})")
     log(smi)

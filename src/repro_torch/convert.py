@@ -9,7 +9,9 @@ Trees are nested dicts and lists.
 - Decoder models (``lm_to_torch``/``lm_to_numpy``): no leaf changes layout.
   The reference stacks each body slot's layers on a leading
   ``body_repeats`` axis (it scans over them); the port holds a list of
-  per-layer trees. The same holds for KV caches.
+  per-layer trees. The same holds for KV caches, gradients and the
+  optimizer state: ``lm_opt_state_to_torch`` carries an SGD (momentum) or
+  Adam (mu, nu) state, each a tree shaped like the parameters.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim import adam, sgd
 
 _STACK = {"head", "body", "tail"}          # the keys of a block stack
 
@@ -114,3 +117,18 @@ def lm_to_numpy(torch_tree: Any) -> Any:
         return tree.map(lambda *xs: np.stack(xs), *per_layer)
 
     return walk(torch_tree)
+
+
+def lm_opt_state_to_torch(state: Any, cfg: ModelConfig,
+                          device: DeviceLike = None) -> Any:
+    """The reference's LM optimizer state (numpy, e.g. ``jax.device_get`` of
+    ``repro.optim.sgd.init(params)`` or ``adam.init(params)``) -> the port's
+    ``SGDState`` or ``AdamState``: every params-shaped field through
+    :func:`lm_to_torch`, the step counter as a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    if hasattr(state, "momentum"):
+        return sgd.SGDState(lm_to_torch(state.momentum, cfg, dev), step)
+    return adam.AdamState(lm_to_torch(state.mu, cfg, dev),
+                          lm_to_torch(state.nu, cfg, dev), step)

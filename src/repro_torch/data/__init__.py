@@ -1,4 +1,5 @@
-from repro_torch.data.synthetic import (ClassificationData,
-                                        teacher_classification)
+from repro_torch.data.synthetic import (ClassificationData, lm_sequences,
+                                        teacher_classification, token_lm)
 
-__all__ = ["ClassificationData", "teacher_classification"]
+__all__ = ["ClassificationData", "lm_sequences", "teacher_classification",
+           "token_lm"]

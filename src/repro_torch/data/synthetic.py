@@ -1,5 +1,5 @@
-"""Synthetic classification data (numpy; the same seed gives the same arrays
-as ``repro.data.synthetic.teacher_classification``).
+"""Synthetic data (numpy; the same seed gives the same arrays as
+``repro.data.synthetic.teacher_classification`` and ``token_lm``).
 
 The paper's accuracy experiments run on a synthetic task engineered to show
 a generalization gap at small scale: inputs are drawn from class-conditional
@@ -53,3 +53,29 @@ def teacher_classification(seed: int, *, n_train: int = 8192,
     return ClassificationData(
         x_train=x[:n_train], y_train=y[:n_train].astype(np.int32),
         x_test=x[n_train:], y_test=y[n_train:].astype(np.int32))
+
+
+def token_lm(seed: int, *, vocab_size: int, n_tokens: int,
+             zipf_a: float = 1.2, branch: int = 32) -> np.ndarray:
+    """First-order Markov chain with Zipf-ish marginals: every token has
+    ``branch`` plausible successors. Returns a flat int32 token stream."""
+    rng = np.random.RandomState(seed)
+    V = vocab_size
+    succ = rng.randint(0, V, size=(V, branch)).astype(np.int32)
+    probs = 1.0 / np.arange(1, branch + 1) ** zipf_a
+    probs /= probs.sum()
+    out = np.empty(n_tokens, dtype=np.int32)
+    tok = rng.randint(0, V)
+    choices = rng.choice(branch, size=n_tokens, p=probs)
+    jumps = rng.rand(n_tokens) < 0.02     # occasional resets
+    rand_toks = rng.randint(0, V, size=n_tokens)
+    for i in range(n_tokens):
+        out[i] = tok
+        tok = int(rand_toks[i]) if jumps[i] else int(succ[tok, choices[i]])
+    return out
+
+
+def lm_sequences(stream: np.ndarray, seq_len: int) -> np.ndarray:
+    """Chop a token stream into (N, seq_len) rows."""
+    n = stream.size // seq_len
+    return stream[: n * seq_len].reshape(n, seq_len)

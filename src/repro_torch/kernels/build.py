@@ -21,8 +21,9 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
-SOURCES = ("gbn.cu", "rmsnorm_residual.cu", "swiglu.cu",
-           "flash_attention.cu", "flash_decode.cu", "flash_decode_paged.cu")
+SOURCES = ("gbn.cu", "rmsnorm_residual.cu", "swiglu.cu", "swiglu_bwd.cu",
+           "flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
+           "flash_decode_paged.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

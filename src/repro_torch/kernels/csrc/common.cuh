@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: element types, conversions to
-// and from f32, 16-byte vector loads and stores, and a block-wide sum.
+// and from f32, 16-byte vector loads and stores, a block-wide sum and the
+// RoPE rotation.
 //
 // Every kernel takes f32 or bf16 tensors (a dtype code from the wrapper:
 // 0 = float32, 1 = bfloat16) and computes in f32. bf16 values are rounded
@@ -8,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace port {
 
@@ -71,6 +73,22 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   v = lane < nwarps ? scratch[lane] : 0.f;
   return warp_sum(v);
+}
+
+// Half-split RoPE of one pair (x1 = element j, x2 = element j + half of a
+// row) at position pos, with freq_j = exp(-(j / half) * log(theta)): the
+// rotation of repro.kernels.flash_attention._rope_rotate. The decode kernels
+// (the query row) and the flash attention forward (its q and k tiles) all
+// rotate through this one function, so they cannot drift apart.
+__device__ __forceinline__ void rope_pair(float& x1, float& x2, float pos,
+                                          int j, int half, float log_theta) {
+  const float ang = pos * expf(-(static_cast<float>(j) /
+                                 static_cast<float>(half)) * log_theta);
+  float sn, cs;
+  sincosf(ang, &sn, &cs);
+  const float a = x1, b = x2;
+  x1 = a * cs - b * sn;
+  x2 = a * sn + b * cs;
 }
 
 }  // namespace port

@@ -1,7 +1,9 @@
 // Flash attention forward (streaming softmax) for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
-//   flash_attention_pallas (_flash_kernel without RoPE), forward only
+// Replaces the Pallas TPU kernels src/repro/kernels/flash_attention.py:
+//   flash_attention_pallas (_flash_kernel without RoPE), forward
+//   flash_attention_rope_pallas (_flash_kernel with RoPE on the loads)
+// Their backward is flash_attention_bwd.cu.
 //
 // q: (B, H, T, HD); k, v: (B, KV, S, HD), head-major, f32 or bf16. Head h
 // reads kv head h / (H / KV) (GQA). Key s is visible to query t iff
@@ -9,6 +11,13 @@
 // (the left pad of a ragged prompt), the mask of _visibility_mask in the
 // Pallas kernel. Writes o (B, H, T, HD) and, when asked, the f32 row
 // logsumexp lse (B, H, T).
+//
+// With positions pos (B, T) f32 (self-attention, S == T: the training
+// path's attention_full), every q and k tile is rotated in f32 right after
+// its load (half-split RoPE, port::rope_pair, the rotation the decode
+// kernels use), before the 1/sqrt(HD) scale: the separate rotations of the
+// full q and k tensors never reach device memory. The ROPE template flag
+// compiles the rotation in; without it the kernel is the one serving runs.
 //
 // A query row that sees no key at all (a left-pad row t < kv_offsets[b]) is
 // written as 0 with lse = -inf. The Pallas kernel masks with the finite
@@ -18,7 +27,8 @@
 //
 // What bounds it: at the serving prefill (B = 8, H = 16, T = S = 512,
 // HD = 128, causal) the two products are about 8.6 GFLOP per layer for
-// 8 MB of q, k, v and o in bf16: arithmetic.
+// 8 MB of q, k, v and o in bf16: arithmetic at the tensor-core rate, but
+// this kernel multiplies with f32 FMAs, whose peak is 15x lower.
 //
 // Design (a first, simple kernel; tensor cores and TMA are later work): one
 // block of 256 threads per (q block of 64 rows, head, batch row) walks the
@@ -51,14 +61,17 @@ constexpr size_t smem_bytes() {
          (static_cast<size_t>(BQ) * (HD + 1) + BK * (HD + 1) + BK * HD);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse,
-                     const int* __restrict__ kv_offsets, int H, int KV, int T_,
-                     int S, int causal, int window, float scale) {
+                     const int* __restrict__ kv_offsets,
+                     const float* __restrict__ pos, int H, int KV, int T_,
+                     int S, int causal, int window, float scale,
+                     float log_theta) {
   constexpr int QS = HD + 1;         // padded row stride of qs and ks
+  constexpr int HALF = HD / 2;
   constexpr int CPT = HD / 4;        // output columns per thread
   constexpr int JPT = BK / 4;        // logits per thread per key block
   extern __shared__ float smem[];
@@ -81,8 +94,22 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, c = i % HD;
     const int t = q_start + r;
-    qs[r * QS + c] =
-        t < T_ ? to_f(q[(q_base + t) * HD + c]) * scale : 0.f;
+    const float qv = t < T_ ? to_f(q[(q_base + t) * HD + c]) : 0.f;
+    qs[r * QS + c] = ROPE ? qv : qv * scale;
+  }
+  if constexpr (ROPE) {  // rotate, then scale (the rotation is linear)
+    __syncthreads();
+    for (int i = tid; i < BQ * HALF; i += THREADS) {
+      const int r = i / HALF, j = i % HALF;
+      const int t = q_start + r;
+      float& x1 = qs[r * QS + j];
+      float& x2 = qs[r * QS + j + HALF];
+      if (t < T_)
+        port::rope_pair(x1, x2, pos[static_cast<size_t>(b) * T_ + t], j,
+                        HALF, log_theta);
+      x1 *= scale;
+      x2 *= scale;
+    }
   }
 
   // the band of keys any row of this block can see
@@ -106,6 +133,17 @@ __global__ void __launch_bounds__(THREADS)
       const bool in = s < S;
       ks[r * QS + c] = in ? to_f(k[(kv_base + s) * HD + c]) : 0.f;
       vs[r * HD + c] = in ? to_f(v[(kv_base + s) * HD + c]) : 0.f;
+    }
+    if constexpr (ROPE) {  // keys hold positions pos[b, s] (S == T)
+      __syncthreads();
+      for (int i = tid; i < BK * HALF; i += THREADS) {
+        const int r = i / HALF, j = i % HALF;
+        const int s = k0 + r;
+        if (s < S)
+          port::rope_pair(ks[r * QS + j], ks[r * QS + j + HALF],
+                          pos[static_cast<size_t>(b) * S + s], j, HALF,
+                          log_theta);
+      }
     }
     __syncthreads();
 
@@ -174,12 +212,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool ROPE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const int* kv_offsets, int B, int H, int KV, int T_, int S,
-           int causal, int window, float scale, cudaStream_t stream) {
+           const int* kv_offsets, const float* pos, int B, int H, int KV,
+           int T_, int S, int causal, int window, float scale,
+           float log_theta, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  auto kernel = flash_fwd_kernel<T, HD>;
+  auto kernel = flash_fwd_kernel<T, HD, ROPE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -187,29 +226,46 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((T_ + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, kv_offsets, H, KV, T_,
-      S, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, kv_offsets, pos, H,
+      KV, T_, S, causal, window, scale, log_theta);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_rope(const void* q, const void* k, const void* v, void* o,
+                float* lse, const int* kv_offsets, const float* pos, int B,
+                int H, int KV, int T_, int S, int causal, int window,
+                float scale, float log_theta, cudaStream_t stream) {
+  if (pos != nullptr)
+    return launch<T, HD, true>(q, k, v, o, lse, kv_offsets, pos, B, H, KV,
+                               T_, S, causal, window, scale, log_theta,
+                               stream);
+  return launch<T, HD, false>(q, k, v, o, lse, kv_offsets, pos, B, H, KV, T_,
+                              S, causal, window, scale, log_theta, stream);
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                float* lse, const int* kv_offsets, int B, int H, int KV,
-                int T_, int S, int causal, int window, float scale,
-                cudaStream_t stream) {
+                float* lse, const int* kv_offsets, const float* pos, int B,
+                int H, int KV, int T_, int S, int causal, int window,
+                float scale, float log_theta, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, kv_offsets, B, H, KV, T_, S,
-                           causal, window, scale, stream);
+      return launch_rope<T, 32>(q, k, v, o, lse, kv_offsets, pos, B, H, KV,
+                                T_, S, causal, window, scale, log_theta,
+                                stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, kv_offsets, B, H, KV, T_, S,
-                           causal, window, scale, stream);
+      return launch_rope<T, 64>(q, k, v, o, lse, kv_offsets, pos, B, H, KV,
+                                T_, S, causal, window, scale, log_theta,
+                                stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, kv_offsets, B, H, KV, T_, S,
-                            causal, window, scale, stream);
+      return launch_rope<T, 128>(q, k, v, o, lse, kv_offsets, pos, B, H, KV,
+                                 T_, S, causal, window, scale, log_theta,
+                                 stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, lse, kv_offsets, B, H, KV, T_, S,
-                            causal, window, scale, stream);
+      return launch_rope<T, 256>(q, k, v, o, lse, kv_offsets, pos, B, H, KV,
+                                 T_, S, causal, window, scale, log_theta,
+                                 stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -220,21 +276,26 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q (B, H, T, hd); k, v (B, KV, S, hd); o like q; all of `dtype`,
-// contiguous. lse (B, H, T) f32 or null; kv_offsets (B,) int32 or null.
-// window <= 0 means no window. hd is 32, 64, 128 or 256.
+// contiguous. lse (B, H, T) f32 or null; kv_offsets (B,) int32 or null;
+// pos (B, T) f32 positions or null (no RoPE); with pos, S == T and
+// log_theta = log(rope_theta). window <= 0 means no window. hd is 32, 64,
+// 128 or 256.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        float* lse, const int* kv_offsets, int B, int H,
-                        int KV, int T_, int S, int hd, int causal, int window,
-                        float scale, int dtype, cudaStream_t stream) {
+                        float* lse, const int* kv_offsets, const float* pos,
+                        int B, int H, int KV, int T_, int S, int hd,
+                        int causal, int window, float scale, float log_theta,
+                        int dtype, cudaStream_t stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || T_ < 1 || S < 1 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 || (pos != nullptr && S != T_))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::kF32)
-    return dispatch_hd<float>(hd, q, k, v, o, lse, kv_offsets, B, H, KV, T_, S,
-                              causal, window, scale, stream);
+    return dispatch_hd<float>(hd, q, k, v, o, lse, kv_offsets, pos, B, H, KV,
+                              T_, S, causal, window, scale, log_theta,
+                              stream);
   if (dtype == port::kBF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, kv_offsets, B, H,
-                                      KV, T_, S, causal, window, scale, stream);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, kv_offsets, pos, B,
+                                      H, KV, T_, S, causal, window, scale,
+                                      log_theta, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

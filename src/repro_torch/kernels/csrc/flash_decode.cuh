@@ -124,13 +124,10 @@ __device__ __forceinline__ void decode_block(
     const float qpos = static_cast<float>(pos - off);
     for (int i = tid; i < G * HALF; i += THREADS) {
       const int r = i / HALF, j = i % HALF;
-      const float ang =
-          qpos * expf(-(static_cast<float>(j) / HALF) * log_theta);
-      float sn, cs;
-      sincosf(ang, &sn, &cs);
-      const float x1 = qs[r * HD + j], x2 = qs[r * HD + j + HALF];
-      qs[r * HD + j] = (x1 * cs - x2 * sn) * scale;
-      qs[r * HD + j + HALF] = (x1 * sn + x2 * cs) * scale;
+      float x1 = qs[r * HD + j], x2 = qs[r * HD + j + HALF];
+      rope_pair(x1, x2, qpos, j, HALF, log_theta);
+      qs[r * HD + j] = x1 * scale;
+      qs[r * HD + j + HALF] = x2 * scale;
     }
   } else {
     for (int i = tid; i < G * HD; i += THREADS) qs[i] *= scale;

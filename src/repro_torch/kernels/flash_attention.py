@@ -1,12 +1,22 @@
-"""Wrapper of the Hopper flash attention forward kernel
-(``csrc/flash_attention.cu``).
+"""Wrappers of the Hopper flash attention kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
 
-``flash_attention_fwd`` replaces
-``src/repro/kernels/flash_attention.py:flash_attention_pallas`` (forward,
-without RoPE): causal or windowed GQA self-attention over head-major
-q (B, H, T, hd) and k, v (B, KV, S, hd), with the ``kv_offsets`` left-pad
-mask of the serving prefill and, when asked, the f32 row logsumexp. Its
-backward comes with the training slice.
+- ``flash_attention_fwd`` replaces
+  ``src/repro/kernels/flash_attention.py:flash_attention_pallas``
+  (forward, without RoPE): causal or windowed GQA self-attention over
+  head-major q (B, H, T, hd) and k, v (B, KV, S, hd), with the
+  ``kv_offsets`` left-pad mask of the serving prefill and, when asked, the
+  f32 row logsumexp.
+- ``flash_attention_rope_fwd`` replaces ``flash_attention_rope_pallas``:
+  the same kernel with its RoPE flag on, rotating each q and k tile by the
+  positions ``pos`` (B, T) right after the load (self-attention, S == T).
+- ``flash_attention_backward`` replaces
+  ``flash_attention_backward_pallas`` (its split path): dq, dk, dv from
+  q, k, v, o, lse and do, the probabilities recomputed from lse; dk and dv
+  are summed over each GQA group inside the kernel.
+  ``flash_attention_rope_backward`` is the reference's RoPE wrapper
+  (``:629``), not a kernel: q and k rotated by ``pos`` in plain torch, the
+  backward kernel, dq and dk rotated back by ``-pos``.
 
 A query row that sees no key (a left-pad row, ``t < kv_offsets[b]``) is
 written as 0 with ``lse = -inf``; the Pallas kernel leaves there a mean of
@@ -14,10 +24,14 @@ V that depends on its block size. Such rows never reach a real row (their
 slots are masked in every later attention), so the port is compared with
 the JAX package on real rows only.
 
-On a CPU tensor it computes its plain version
-(:func:`repro_torch.kernels.ref.attention_ref`); on a CUDA tensor it
-launches the kernel or raises. The kernel's limits: q, k, v of one dtype
-(f32 or bf16), contiguous, ``hd`` in ``HEAD_DIMS``, ``H % KV == 0``.
+On a CPU tensor each computes its plain version
+(:func:`repro_torch.kernels.ref.attention_ref`,
+:func:`~repro_torch.kernels.ref.attention_rope_ref`,
+:func:`~repro_torch.kernels.ref.attention_backward_ref`); on a CUDA tensor
+it launches the kernel or raises. The kernels' limits: every operand of
+one dtype (f32 or bf16), contiguous, ``hd`` in ``HEAD_DIMS`` (the
+backward: ``BWD_HEAD_DIMS``, its four f32 tiles must fit in shared
+memory), ``H % KV == 0``.
 """
 from __future__ import annotations
 
@@ -31,15 +45,51 @@ from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
-launches: Dict[str, int] = {"flash_attention": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_rope": 0,
+                            "flash_attention_backward": 0}
 HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)
 
-_SIGNATURES = {"flash_attention_fwd": [L.P] * 6 + [L.I] * 8 + [L.F, L.I,
-                                                             L.P]}
+_SIGNATURES = {"flash_attention_fwd": [L.P] * 7 + [L.I] * 8
+               + [L.F, L.F, L.I, L.P]}
+_BWD_SIGNATURES = {"flash_attention_bwd": [L.P] * 10 + [L.I] * 8
+                   + [L.F, L.I, L.P]}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for name in launches:
+        launches[name] = 0
+
+
+def _check_qkv(q: Tensor, k: Tensor, v: Tensor, head_dims=HEAD_DIMS
+               ) -> Tuple[int, int, int, int, int, int, int]:
+    """(B, H, KV, T, S, hd, dtype code) of head-major q, k, v the kernels
+    take; raises on anything else."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be (B, H, T, hd) and k (B, KV, S, hd), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    dev = q.device
+    code = L.dtype_code("q", q)
+    L.check("q", q, (B, H, T, hd), dev)
+    L.check("k", k, (B, KV, S, hd), dev, q.dtype)
+    L.check("v", v, (B, KV, S, hd), dev, q.dtype)
+    if hd not in head_dims:
+        raise ValueError(f"head_dim={hd}: the kernel takes {head_dims}")
+    if H % KV:
+        raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"B={B}, H={H}: the grid takes at most 65535 each")
+    L.check_index("T", T)
+    L.check_index("S", S)
+    return B, H, KV, T, S, hd, code
+
+
+def _window(window: Optional[int]) -> int:
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window={window} must be >= 1")
+    return 0 if window is None else int(window)
 
 
 def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, *,
@@ -54,24 +104,8 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, *,
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  kv_offsets=kv_offsets,
                                  return_lse=return_lse)
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q must be (B, H, T, hd) and k (B, KV, S, hd), got "
-                         f"{tuple(q.shape)} and {tuple(k.shape)}")
-    B, H, T, hd = q.shape
-    KV, S = k.shape[1], k.shape[2]
+    B, H, KV, T, S, hd, code = _check_qkv(q, k, v)
     dev = q.device
-    code = L.dtype_code("q", q)
-    L.check("q", q, (B, H, T, hd), dev)
-    L.check("k", k, (B, KV, S, hd), dev, q.dtype)
-    L.check("v", v, (B, KV, S, hd), dev, q.dtype)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim={hd}: the kernel takes {HEAD_DIMS}")
-    if H % KV:
-        raise ValueError(f"H={H} is not a multiple of KV={KV}")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"B={B}, H={H}: the grid takes at most 65535 each")
-    L.check_index("T", T)
-    L.check_index("S", S)
     offs = None
     if kv_offsets is not None:
         if kv_offsets.device != dev or kv_offsets.shape != (B,):
@@ -80,14 +114,96 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, *,
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, T), device=dev, dtype=torch.float32)
            if return_lse else None)
-    w = 0 if window is None else int(window)
-    if window is not None and w < 1:
-        raise ValueError(f"window={window} must be >= 1")
+    w = _window(window)
     lib = L.bind("flash_attention.cu", _SIGNATURES)
     with torch.cuda.device(dev):
         L.call(lib.flash_attention_fwd, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), o.data_ptr(), L.ptr(lse), L.ptr(offs), B, H, KV,
-               T, S, hd, int(causal), w, 1.0 / math.sqrt(hd), code,
-               L.stream(dev))
+               v.data_ptr(), o.data_ptr(), L.ptr(lse), L.ptr(offs), None, B,
+               H, KV, T, S, hd, int(causal), w, 1.0 / math.sqrt(hd), 0.0,
+               code, L.stream(dev))
     launches["flash_attention"] += 1
     return (o, lse) if return_lse else o
+
+
+def flash_attention_rope_fwd(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
+                             theta: float, causal: bool = True,
+                             window: Optional[int] = None,
+                             return_lse: bool = False
+                             ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """q: (B, H, T, hd); k, v: (B, KV, T, hd) UNROTATED; pos: (B, T)
+    positions shared by q and k -> o (B, H, T, hd) in q.dtype (and lse
+    (B, H, T) f32 with ``return_lse``), the rotation done inside the kernel."""
+    if not q.is_cuda:
+        return ref.attention_rope_ref(q, k, v, pos, theta=theta,
+                                      causal=causal, window=window,
+                                      return_lse=return_lse)
+    B, H, KV, T, S, hd, code = _check_qkv(q, k, v)
+    dev = q.device
+    if S != T:
+        raise ValueError(f"RoPE attention is self-attention: S={S} != T={T}")
+    pos32 = pos.to(torch.float32).contiguous()
+    L.check("pos", pos32, (B, T), dev)
+    o = torch.empty_like(q)
+    lse = (torch.empty((B, H, T), device=dev, dtype=torch.float32)
+           if return_lse else None)
+    w = _window(window)
+    lib = L.bind("flash_attention.cu", _SIGNATURES)
+    with torch.cuda.device(dev):
+        L.call(lib.flash_attention_fwd, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), L.ptr(lse), None,
+               pos32.data_ptr(), B, H, KV, T, S, hd, int(causal), w,
+               1.0 / math.sqrt(hd), math.log(theta), code, L.stream(dev))
+    launches["flash_attention_rope"] += 1
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                             lse: Tensor, do: Tensor, *, causal: bool = True,
+                             window: Optional[int] = None
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """VJP of the forward w.r.t. (q, k, v) (rotated q, k for RoPE
+    attention). q, o, do: (B, H, T, hd); k, v: (B, KV, S, hd); lse (B, H, T)
+    f32. Returns (dq, dk, dv) in q's dtype, dk and dv summed over each GQA
+    group."""
+    if not q.is_cuda:
+        return ref.attention_backward_ref(q, k, v, o, lse, do, causal=causal,
+                                          window=window)
+    B, H, KV, T, S, hd, code = _check_qkv(q, k, v, BWD_HEAD_DIMS)
+    dev = q.device
+    L.check("o", o, (B, H, T, hd), dev, q.dtype)
+    L.check("do", do, (B, H, T, hd), dev, q.dtype)
+    L.check("lse", lse, (B, H, T), dev, torch.float32)
+    w = _window(window)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, T), device=dev, dtype=torch.float32)
+    lib = L.bind("flash_attention_bwd.cu", _BWD_SIGNATURES)
+    with torch.cuda.device(dev):
+        L.call(lib.flash_attention_bwd, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+               B, H, KV, T, S, hd, int(causal), w, 1.0 / math.sqrt(hd), code,
+               L.stream(dev))
+    launches["flash_attention_backward"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_rope_backward(q: Tensor, k: Tensor, v: Tensor,
+                                  pos: Tensor, o: Tensor, lse: Tensor,
+                                  do: Tensor, *, theta: float,
+                                  causal: bool = True,
+                                  window: Optional[int] = None
+                                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """VJP of :func:`flash_attention_rope_fwd` w.r.t. the UNROTATED (q, k,
+    v): the rotation is orthogonal and position-wise, so q and k are rotated
+    by pos (plain torch, in their dtype), :func:`flash_attention_backward`
+    runs on the rotated inputs, and dq, dk are rotated back by -pos. dv is
+    untouched by RoPE."""
+    qr = ref.rope_rotate_hm(q, pos, theta)
+    kr = ref.rope_rotate_hm(k, pos, theta)
+    dqr, dkr, dv = flash_attention_backward(qr, kr, v, o, lse, do,
+                                            causal=causal, window=window)
+    back = -pos.to(torch.float32)
+    return (ref.rope_rotate_hm(dqr, back, theta),
+            ref.rope_rotate_hm(dkr, back, theta), dv)

@@ -4,13 +4,19 @@ wrapper, and what ``chip_smoke.py`` holds each CUDA kernel to on the card.
 - GBN: mirrors ``repro.kernels.ref.gbn_ref`` / ``gbn_vjp_ref`` (two-pass,
   biased variance).
 - ``rmsnorm_residual_ref`` and ``swiglu_ref`` mirror their ``repro`` twins
-  op for op, in the input dtype.
-- ``attention_ref``, ``flash_decode_ref`` and ``flash_decode_paged_ref``
-  compute in f32 as the kernels do (``repro``'s attention oracle forms bf16
-  logits; in f32 the two agree). A query row that sees no key (a left-pad
-  row of a ragged prompt) is defined as 0 here and in the kernels, where
-  the JAX oracle returns the mean of V; such rows are masked out of every
-  later attention.
+  op for op, in the input dtype; their backwards
+  (``rmsnorm_residual_backward_ref``, ``swiglu_backward_ref``) mirror the
+  Pallas backward kernels in f32, and the ``*_vjp_ref`` oracles are hand
+  derived from them, not autograd through the forward.
+- ``attention_ref``, ``attention_rope_ref``, ``flash_decode_ref`` and
+  ``flash_decode_paged_ref`` compute in f32 as the kernels do (``repro``'s
+  attention oracle forms bf16 logits; in f32 the two agree).
+  ``attention_backward_ref`` is the flash backward's recomputation from
+  (o, lse); ``attention_vjp_ref`` and ``attention_rope_vjp_ref`` are the
+  hand-derived softmax VJPs of ``repro.kernels.ref``. A query row that
+  sees no key (a left-pad row of a ragged prompt) is defined as 0 here and
+  in the kernels, where the JAX oracle returns the mean of V; such rows are
+  masked out of every later attention.
 - ``quantize_slots`` is the int8 KV pool's per-slot quantizer.
 """
 from __future__ import annotations
@@ -88,6 +94,45 @@ def rmsnorm_residual_ref(x: Tensor, r: Optional[Tensor], scale: Tensor,
     return y.to(x.dtype), s
 
 
+def rmsnorm_residual_backward_ref(s: Tensor, scale: Tensor, dy: Tensor,
+                                  ds: Optional[Tensor], eps: float = 1e-6
+                                  ) -> Tuple[Tensor, Tensor]:
+    """VJP of :func:`rmsnorm_residual_ref` from the saved ``(s, scale)``,
+    op for op as ``repro.kernels.fused_norm._bwd_kernel``: with
+    ``s_hat = s * rstd`` and ``w = dy * scale``,
+
+        dx = rstd * (w - s_hat * mean(w * s_hat)) + ds
+        dscale = sum over rows of dy * s_hat
+
+    s, dy, ds: (N, d); ``ds=None`` is a zero cotangent on s (the norms with
+    no residual). Returns (dx (N, d) in s.dtype, which is also dr, and
+    dscale (d,) f32)."""
+    sf = s.float()
+    dyf = dy.float()
+    rv = torch.rsqrt(sf.square().mean(dim=-1, keepdim=True) + eps)
+    s_hat = sf * rv
+    w = dyf * scale.float()
+    dx = rv * (w - s_hat * (w * s_hat).mean(dim=-1, keepdim=True))
+    if ds is not None:
+        dx = dx + ds.float()
+    dscale = (dyf * s_hat).reshape(-1, s.shape[-1]).sum(dim=0)
+    return dx.to(s.dtype), dscale
+
+
+def rmsnorm_residual_vjp_ref(x: Tensor, r: Optional[Tensor], scale: Tensor,
+                             cts: Tuple[Tensor, Optional[Tensor]],
+                             eps: float = 1e-6
+                             ) -> Tuple[Tensor, Optional[Tensor], Tensor]:
+    """VJP of :func:`rmsnorm_residual_ref` w.r.t. (x, r, scale), hand
+    derived (:func:`rmsnorm_residual_backward_ref` at ``s = x + r``).
+    ``cts = (dy, ds)``; returns (dx, dr (None when ``r`` is None; else dx:
+    the add fans the cotangent out equally), dscale in scale.dtype)."""
+    _, s = rmsnorm_residual_ref(x, r, scale, eps)
+    dy, ds = cts
+    dx, dscale = rmsnorm_residual_backward_ref(s, scale, dy, ds, eps)
+    return dx, (None if r is None else dx), dscale.to(scale.dtype)
+
+
 def swiglu_ref(x: Tensor, wg: Tensor, wu: Tensor) -> Tuple[Tensor, Tensor]:
     """``h = silu(x @ wg) * (x @ wu)`` and the gate pre-activation
     ``g = x @ wg``, in x.dtype. x: (..., d); wg, wu: (d, F)."""
@@ -95,6 +140,44 @@ def swiglu_ref(x: Tensor, wg: Tensor, wu: Tensor) -> Tuple[Tensor, Tensor]:
     g = x @ wg.to(dt)
     u = x @ wu.to(dt)
     return F.silu(g) * u, g
+
+
+def swiglu_backward_ref(x: Tensor, wg: Tensor, wu: Tensor, g: Tensor,
+                        dh: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Activation-side VJP of :func:`swiglu_ref` from the saved gate ``g``,
+    op for op as ``repro.kernels.swiglu._bwd_kernel`` (f32 throughout, u
+    recomputed): with ``sig = sigmoid(g)``,
+
+        du = dh * g * sig
+        dg = dh * u * sig * (1 + g * (1 - sig))
+        dx = dg @ wg^T + du @ wu^T          (from the f32 dg, du)
+
+    x: (N, d); wg, wu: (d, F); g, dh: (N, F). Returns (dx (N, d) f32,
+    dg and du (N, F) in x.dtype)."""
+    wgf, wuf = wg.float(), wu.float()
+    u = x.float() @ wuf
+    gf, dhf = g.float(), dh.float()
+    sig = torch.sigmoid(gf)
+    du = dhf * gf * sig
+    dg = dhf * u * sig * (1.0 + gf * (1.0 - sig))
+    dx = dg @ wgf.T + du @ wuf.T
+    return dx, dg.to(x.dtype), du.to(x.dtype)
+
+
+def swiglu_vjp_ref(x: Tensor, wg: Tensor, wu: Tensor, dh: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """VJP of the SwiGLU output ``h`` w.r.t. (x, wg, wu), hand derived as
+    ``repro.kernels.ops._swiglu_bwd``: the activation side from
+    :func:`swiglu_backward_ref`, then the weight gradients as f32 GEMMs
+    over the rows, ``dwg = x^T @ dg`` and ``dwu = x^T @ du``. x: (..., d);
+    dh: (..., F). Returns (dx in x.dtype, dwg, dwu in the weights' dtypes)."""
+    d, Fh = wg.shape
+    x2 = x.reshape(-1, d)
+    _, g = swiglu_ref(x2, wg, wu)
+    dx, dg, du = swiglu_backward_ref(x2, wg, wu, g, dh.reshape(-1, Fh))
+    x2t = x2.float().T
+    return (dx.to(x.dtype).reshape(x.shape), (x2t @ dg.float()).to(wg.dtype),
+            (x2t @ du.float()).to(wu.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +221,117 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return out
     lse = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), dim=-1)
     return out, lse.reshape(B, H, T)
+
+
+def _band_mask(T: int, S: int, causal: bool, window: Optional[int],
+               device) -> Tensor:
+    """(T, S) visibility of key s to query t (causal, window)."""
+    qi = torch.arange(T, device=device)[:, None]
+    ki = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    return mask
+
+
+def attention_backward_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                           lse: Tensor, do: Tensor, *, causal: bool = True,
+                           window: Optional[int] = None
+                           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """VJP of :func:`attention_ref` from the forward's (o, lse), the
+    recomputation of ``repro.kernels.flash_attention``'s backward kernels
+    (``_recompute_p_ds``) in f32: ``p = exp(q k^T / sqrt(hd) - lse)``,
+    ``delta = rowsum(do * o)``, ``ds = p * (do v^T - delta)``; then
+    ``dq = ds k / sqrt(hd)``, ``dk = ds^T q / sqrt(hd)``, ``dv = p^T do``
+    with dk, dv summed over each GQA group. q, o, do: (B, H, T, hd); k, v:
+    (B, KV, S, hd); lse (B, H, T) f32. Returns (dq, dk, dv) in the input
+    dtypes."""
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, KV, g, T, hd)
+    dof = do.float().reshape(B, KV, g, T, hd)
+    kf, vf = k.float(), v.float()
+    mask = _band_mask(T, S, causal, window, q.device)
+    s = torch.einsum("bkgtd,bksd->bkgts", qf, kf) * scale
+    p = torch.exp(s - lse.reshape(B, KV, g, T, 1)).masked_fill(~mask, 0.0)
+    delta = (do.float() * o.float()).sum(dim=-1).reshape(B, KV, g, T, 1)
+    dp = torch.einsum("bkgtd,bksd->bkgts", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgts,bksd->bkgtd", ds, kf) * scale
+    dk = torch.einsum("bkgts,bkgtd->bksd", ds, qf) * scale
+    dv = torch.einsum("bkgts,bkgtd->bksd", p, dof)
+    return (dq.reshape(B, H, T, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def attention_vjp_ref(q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
+                      causal: bool = True, window: Optional[int] = None
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Hand-derived VJP of :func:`attention_ref` w.r.t. (q, k, v), as
+    ``repro.kernels.ref.attention_vjp_ref``: the probabilities from a
+    softmax (not from a saved lse) and ``delta = rowsum(p * dp)``, f32
+    throughout. Returns (dq, dk, dv) in the input dtypes."""
+    B, H, T, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, KV, g, T, hd)
+    dof = do.float().reshape(B, KV, g, T, hd)
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bkgtd,bksd->bkgts", qf, kf) * scale
+    mask = _band_mask(T, S, causal, window, q.device)
+    p = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
+    dv = torch.einsum("bkgts,bkgtd->bksd", p, dof)
+    dp = torch.einsum("bkgtd,bksd->bkgts", dof, vf)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgts,bksd->bkgtd", ds, kf).reshape(B, H, T, hd)
+    dk = torch.einsum("bkgts,bkgtd->bksd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rope_rotate_hm(x: Tensor, pos: Tensor, theta: float) -> Tensor:
+    """Head-major RoPE: x (B, Hx, T, hd) by positions pos (B, T), returned
+    in x.dtype, as ``repro.kernels.flash_attention._rope_rotate_hm``;
+    ``-pos`` rotates back (the rotation is orthogonal)."""
+    return rope_rotate(x, pos[:, None, :], theta).to(x.dtype)
+
+
+def attention_rope_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
+                       theta: float, causal: bool = True,
+                       window: Optional[int] = None,
+                       return_lse: bool = False
+                       ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """RoPE-fused self-attention: q (B, H, T, hd) and k (B, KV, T, hd)
+    rotated by pos (B, T) in f32 (as the kernel rotates its tiles right
+    after the load, before the 1/sqrt(hd) scale), then
+    :func:`attention_ref` in f32. Returns o in q.dtype (and the f32 lse)."""
+    out = attention_ref(rope_rotate(q, pos[:, None, :], theta),
+                        rope_rotate(k, pos[:, None, :], theta), v.float(),
+                        causal=causal, window=window, return_lse=return_lse)
+    if return_lse:
+        return out[0].to(q.dtype), out[1]
+    return out.to(q.dtype)
+
+
+def attention_rope_vjp_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
+                           do: Tensor, *, theta: float, causal: bool = True,
+                           window: Optional[int] = None
+                           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """VJP of :func:`attention_rope_ref` w.r.t. (q, k, v): the rotation is
+    orthogonal and position-wise, so rotate q and k by pos, take
+    :func:`attention_vjp_ref`, and rotate dq and dk back by -pos (f32)."""
+    qr = rope_rotate(q, pos[:, None, :], theta)
+    kr = rope_rotate(k, pos[:, None, :], theta)
+    dqr, dkr, dv = attention_vjp_ref(qr, kr, v.float(), do, causal=causal,
+                                     window=window)
+    back = -pos.float()[:, None, :]
+    return (rope_rotate(dqr, back, theta).to(q.dtype),
+            rope_rotate(dkr, back, theta).to(k.dtype), dv.to(v.dtype))
 
 
 def slot_visibility(slot: Tensor, pos: Union[int, Tensor], *, seq_k: int,

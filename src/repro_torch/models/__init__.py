@@ -1,1 +1,2 @@
-"""The paper's vision models (port of ``repro.models`` mlp/cnn)."""
+"""The paper's vision models and the dense decoders (port of
+``repro.models``)."""

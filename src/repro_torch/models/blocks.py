@@ -1,22 +1,23 @@
-"""LayerSpec interpreter of the serving path (the port of
-``repro.models.blocks``): one block is a pre-norm attention sublayer
-(``mixer="attn"`` or sliding-window ``"swa"``) and a dense SwiGLU
-sublayer, run in fused-prefill or one-token decode mode against its cache.
+"""LayerSpec interpreter (the port of ``repro.models.blocks``): one block
+is a pre-norm attention sublayer (``mixer="attn"`` or sliding-window
+``"swa"``) and a dense SwiGLU sublayer, run with no cache (the training
+forward, optionally rematerialized block by block) or against its cache in
+fused-prefill or one-token decode mode.
 
 The JAX package scans the repeating body over stacked parameters; the port
 holds one tree per layer: ``stack["body"][j][i]`` is repeat ``i`` of body
 slot ``j`` (``repro_torch.convert.lm_to_torch`` unstacks), and a Python
 loop runs the layers in the reference's order.
 
-Cross-attention, SSM and MoE blocks, tensor parallelism, remat and the
-training forward (no cache) wait for their slices: reaching one raises
-``NotImplementedError`` naming it.
+Cross-attention, SSM and MoE blocks and tensor parallelism wait for
+their slices: reaching one raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
@@ -76,22 +77,26 @@ def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
 
 
 def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
-                *, cache: Params, positions: Optional[Tensor] = None,
+                *, cache: Optional[Params] = None,
+                positions: Optional[Tensor] = None,
                 pos: Union[int, Tensor, None] = None, decode: bool = False,
-                use_kernels: bool = False,
-                offsets: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
-    """Apply one block against its cache: ``decode=True`` is one token at
-    ``pos``; otherwise the fused prefill over ``positions`` fills the cache.
-    Returns (x, cache), the cache updated in place."""
+                causal: bool = True, use_kernels: bool = False,
+                offsets: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Optional[Params]]:
+    """Apply one block. With no cache it is the training forward over
+    ``positions``; against a cache, ``decode=True`` is one token at ``pos``
+    and otherwise the fused prefill over ``positions`` fills the cache.
+    Returns (x, cache), the cache updated in place (None without one)."""
     _supported(spec)
-    if cache is None:
-        raise NotImplementedError("the training forward (no cache) comes "
-                                  "with the LM training slice")
     y_mix = None
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
         h = L.norm_apply(cfg, params["norm1"], x, use_kernels=use_kernels)
-        if decode:
+        if cache is None:
+            y_mix = L.attention_full(params["mixer"], cfg, h, positions,
+                                     window=window, causal=causal,
+                                     use_kernels=use_kernels)
+        elif decode:
             y_mix, _ = L.attention_decode(params["mixer"], cfg, h,
                                           cache["attn"], pos, window=window,
                                           offsets=offsets,
@@ -168,14 +173,27 @@ def each_layer(tree: Params, cfg: ModelConfig
 
 
 def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
-                cache: Params, positions: Optional[Tensor] = None,
+                cache: Optional[Params] = None,
+                positions: Optional[Tensor] = None,
                 pos: Union[int, Tensor, None] = None, decode: bool = False,
-                use_kernels: bool = False,
-                offsets: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
-    """Run head + body + tail against ``cache`` (updated in place)."""
+                causal: bool = True, use_kernels: bool = False,
+                remat: bool = False,
+                offsets: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Optional[Params]]:
+    """Run head + body + tail: with no cache, the training forward over
+    ``positions``; otherwise against ``cache`` (updated in place).
+
+    ``remat=True`` (no cache) recomputes each block in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of the
+    reference's ``jax.checkpoint(nothing_saveable)``: only each block's
+    input stays alive between the passes."""
     if cache is None:
-        raise NotImplementedError("the training forward (no cache) comes "
-                                  "with the LM training slice")
+        for spec, p in each_layer(params, cfg):
+            def fn(xb, p=p, spec=spec):
+                return block_apply(p, cfg, spec, xb, positions=positions,
+                                   causal=causal, use_kernels=use_kernels)[0]
+            x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+        return x, None
     for (spec, p), (_, c) in zip(each_layer(params, cfg),
                                  each_layer(cache, cfg)):
         x, _ = block_apply(p, cfg, spec, x, cache=c, positions=positions,

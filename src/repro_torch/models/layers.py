@@ -1,6 +1,6 @@
-"""Decoder layers of the serving path (the port of ``repro.models.layers``):
-RMSNorm, half-split RoPE, GQA attention over a KV cache (fused prefill and
-one-token decode) and the SwiGLU MLP.
+"""Decoder layers (the port of ``repro.models.layers``): RMSNorm,
+half-split RoPE, GQA self-attention over a full sequence (training) and
+over a KV cache (fused prefill and one-token decode), and the SwiGLU MLP.
 
 Layers are functions over explicit parameter trees, as in the JAX package:
 ``params = <layer>_init(gen, ...)``, ``y = <layer>_apply(params, x, ...)``.
@@ -8,21 +8,24 @@ Weights are drawn from an explicit ``torch.Generator`` on the device the
 tree lives on. Compute happens in the activations' dtype (bf16 at full
 width, f32 in the parity tests); norm scales are f32.
 
-``use_kernels=True`` takes the reference's kernel structure: a head-major
-cache (``kh``/``vh``), the query's RoPE rotation fused into the decode
-kernel and the cached key rotated when written, the flash prefill with the
-ragged ``kv_offsets`` mask, the fused residual-add + RMSNorm and the fused
-SwiGLU. ``use_kernels=False`` is the reference's plain path (``_sdpa``
-over a seq-major cache). Unlike the JAX package, a cache is updated IN
-PLACE and returned: decode then allocates nothing cache-sized.
+``use_kernels=True`` takes the reference's kernel structure: the training
+attention with RoPE fused into the flash kernel, a head-major cache
+(``kh``/``vh``), the query's RoPE rotation fused into the decode kernel
+and the cached key rotated when written, the flash prefill with the ragged
+``kv_offsets`` mask, the fused residual-add + RMSNorm and the fused
+SwiGLU, each differentiable through its backward kernel.
+``use_kernels=False`` is the reference's plain path (``_sdpa``, the
+block-local window attention, a seq-major cache). Unlike the JAX package,
+a cache is updated IN PLACE and returned: decode then allocates nothing
+cache-sized.
 
 A paged cache (``kp``/``vp`` page pool, ``pt`` block tables, and for an
 int8 pool the ``ks``/``vs`` per-slot scales) is the continuous-batching
 engine's layout; decode writes into it in place and attends through the
 paged decode kernel (kernels) or a gather of every row's pages (plain).
 
-The training forward (``attention_full``, the local-window attention) and
-the cross-attention wait for their slices.
+The cross-attention and ``attention_full``'s ``segment_mask`` wait for the
+encoder slice.
 """
 from __future__ import annotations
 
@@ -215,6 +218,73 @@ def window_mask(T: int, S: int, window: int, device=None) -> Tensor:
     qi = torch.arange(T, device=device)[:, None]
     ki = torch.arange(S, device=device)[None, :]
     return (ki <= qi) & (ki > qi - window)
+
+
+def _local_attention(q: Tensor, k: Tensor, v: Tensor, window: int,
+                     dtype: torch.dtype) -> Tensor:
+    """Block-local sliding-window attention with O(T * 2*window) cost, as
+    ``repro.models.layers._local_attention``: T is padded to a multiple of
+    ``window``; each query block attends its own and the previous key
+    block, masked to exactly ``window`` history."""
+    B, T, h, hd = q.shape
+    kv = k.shape[2]
+    W = window
+    Tp = (T + W - 1) // W * W
+    pad = Tp - T
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    nb = Tp // W
+    if h // kv > 1:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    qb = q.reshape(B, nb, W, h, hd)
+    kb = k.reshape(B, nb, W, h, hd)
+    vb = v.reshape(B, nb, W, h, hd)
+    # keys for block i = concat(block i-1, block i): (B, nb, 2W, h, hd)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], 1),
+                    kb], dim=2)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], 1),
+                    vb], dim=2)
+    logits = torch.einsum("bnwhd,bnshd->bnhws", qb, k2).float() / math.sqrt(hd)
+    # in-block relative positions: query w (0..W-1) at global offset W + w
+    qi = torch.arange(W, device=q.device)[:, None] + W
+    ki = torch.arange(2 * W, device=q.device)[None, :]
+    m = (ki <= qi) & (ki > qi - W)                          # (W, 2W)
+    # the first block has no previous block
+    first = torch.arange(nb, device=q.device)[:, None, None] > 0
+    m = m[None] & (first | (ki[None] >= W))                 # (nb, W, 2W)
+    logits = logits.masked_fill(~m[None, :, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    out = torch.einsum("bnhws,bnshd->bnwhd", probs, v2)
+    return out.reshape(B, Tp, h, hd)[:, :T]
+
+
+def attention_full(params: Params, cfg: ModelConfig, x: Tensor,
+                   positions: Tensor, *, window: Optional[int] = None,
+                   causal: bool = True, use_kernels: bool = False) -> Tensor:
+    """Self-attention over a full sequence (training). x: (B, T, D);
+    positions: (B, T). With kernels (causal) the flash kernel rotates q
+    and k on its loads; the plain path applies RoPE, then ``_sdpa`` with a
+    causal or window mask, or the block-local attention for a window
+    shorter than half the sequence."""
+    B, T, _ = x.shape
+    if use_kernels and causal:
+        q, k, v = _project_qkv(params, cfg, x, positions, rope=False)
+        out = kops.flash_attention_rope(q, k, v, positions,
+                                        theta=cfg.rope_theta, causal=True,
+                                        window=window)
+        return out.reshape(B, T, -1) @ params["wo"].to(x.dtype)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if window is not None and causal and T > 2 * window:
+        out = _local_attention(q, k, v, window, x.dtype)
+    else:
+        if causal:
+            m = (window_mask(T, T, window, device=x.device)
+                 if window is not None else causal_mask(T, T, device=x.device))
+        else:
+            m = torch.ones((T, T), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, m[None])
+    return out.reshape(B, T, -1) @ params["wo"].to(x.dtype)
 
 
 # -- KV cache -----------------------------------------------------------------

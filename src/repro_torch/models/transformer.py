@@ -1,12 +1,15 @@
-"""Top-level decoder of the serving path (the port of
-``repro.models.transformer``): token embedding, the block stack and the LM
-head, as a fused prefill and a one-token decode step against KV caches.
-Both run through the kernels by default (``use_kernels=True``, head-major
-caches); ``use_kernels=False`` is the reference's plain path over
-seq-major caches.
+"""Top-level decoder (the port of ``repro.models.transformer``): token
+embedding, the block stack and the LM head.
 
-The training forward and loss (``forward``, ``lm_loss``) come with the LM
-training slice; encoder and vision memories with theirs.
+- Training: ``forward`` (logits), ``hidden_states`` and ``lm_loss`` (next-
+  token cross-entropy, dense or vocab-chunked), differentiable; the
+  reference's default ``use_kernels=False`` here too.
+- Serving: a fused prefill and a one-token decode step against KV caches,
+  through the kernels by default (``use_kernels=True``, head-major
+  caches); ``use_kernels=False`` is the reference's plain path over
+  seq-major caches.
+
+Encoder and vision memories come with their slice.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -115,3 +119,116 @@ def prefill_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
                              positions=positions, decode=False,
                              use_kernels=use_kernels, offsets=offsets)
     return _logits(params, cfg, x[:, -1:], use_kernels), cache
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def _embed_positions(params: Params, cfg: ModelConfig, tokens: Tensor
+                     ) -> Tuple[Tensor, Tensor]:
+    if cfg.encoder is not None or cfg.vision is not None:
+        raise NotImplementedError("encoder and vision memories come with the "
+                                  "encoder/VLM slice")
+    Bsz, S = tokens.shape
+    x = F.embedding(tokens, params["embed"]).to(compute_dtype(cfg))
+    positions = torch.arange(S, device=x.device)[None].expand(Bsz, S)
+    return x, positions
+
+
+def hidden_states(params: Params, cfg: ModelConfig, tokens: Tensor, *,
+                  use_kernels: bool = False, remat: bool = False
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The stack up to (but excluding) the LM head: the final norm's
+    output (B, S, d) and the auxiliary losses (zero: no MoE blocks yet)."""
+    x, positions = _embed_positions(params, cfg, tokens)
+    x, _ = B.stack_apply(params["stack"], cfg, x, positions=positions,
+                         causal=cfg.causal, use_kernels=use_kernels,
+                         remat=remat)
+    x = L.norm_apply(cfg, params["final_norm"], x, use_kernels=use_kernels)
+    zero = torch.zeros((), device=x.device)
+    return x, {"moe_aux": zero, "moe_z": zero}
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: Tensor, *,
+            use_kernels: bool = False, remat: bool = False
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """tokens: (B, S) ids -> (logits (B, S, padded_vocab), aux losses)."""
+    x, aux = hidden_states(params, cfg, tokens, use_kernels=use_kernels,
+                           remat=remat)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return x @ head.to(x.dtype).T, aux
+
+
+def _dense_ce(cfg: ModelConfig, logits: Tensor, targets: Tensor) -> Tensor:
+    """Mean next-token CE in f32; padded-vocab logits are masked to -1e30."""
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def _ce_chunk_step(cfg: ModelConfig, x: Tensor, hc: Tensor, base: int,
+                   targets: Tensor, m_run: Tensor, s_run: Tensor,
+                   gold: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """One vocab chunk of the streaming CE: this chunk's logits, the
+    running max and sum of exponentials, and the gold logit of the targets
+    that fall in it (the body of the reference's scan)."""
+    chunk = hc.shape[0]
+    lg = (x @ hc.to(x.dtype).T).float()                     # (B, S, chunk)
+    if cfg.padded_vocab != cfg.vocab_size:
+        vid = base + torch.arange(chunk, device=x.device)
+        lg = lg.masked_fill(vid >= cfg.vocab_size, -1e30)
+    m_new = torch.maximum(m_run, lg.amax(dim=-1))
+    s_new = s_run * torch.exp(m_run - m_new) \
+        + torch.exp(lg - m_new[..., None]).sum(dim=-1)
+    in_chunk = (targets >= base) & (targets < base + chunk)
+    idx = (targets - base).clamp(0, chunk - 1).long()
+    g = lg.gather(-1, idx[..., None])[..., 0]
+    return m_new, s_new, torch.where(in_chunk, g, gold)
+
+
+def _chunked_ce(cfg: ModelConfig, x: Tensor, head: Tensor, targets: Tensor,
+                chunk: int) -> Tensor:
+    """Vocab-chunked streaming softmax CE: the (B, S, V) f32 logits are
+    never materialised. A Python loop over the chunks; each chunk's logits
+    are recomputed in the backward (``torch.utils.checkpoint``) rather than
+    kept, as XLA rematerialises the reference's scan."""
+    Vp = cfg.padded_vocab
+    if Vp % chunk:
+        raise ValueError(f"padded vocab {Vp} is not a multiple of {chunk}")
+    shape = targets.shape
+    m_run = torch.full(shape, -1e30, device=x.device)
+    s_run = torch.zeros(shape, device=x.device)
+    gold = torch.zeros(shape, device=x.device)
+    for base in range(0, Vp, chunk):
+        m_run, s_run, gold = checkpoint(
+            _ce_chunk_step, cfg, x, head[base:base + chunk], base, targets,
+            m_run, s_run, gold, use_reentrant=False)
+    logz = m_run + torch.log(s_run.clamp_min(1e-30))
+    return (logz - gold).mean()
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
+            use_kernels: bool = False, remat: bool = False,
+            ce_chunk: int = 0) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S). ``ce_chunk >
+    0`` (dividing the padded vocab) takes the vocab-chunked streaming CE.
+    Returns (loss, {"ce", "moe_aux", "moe_z"})."""
+    tokens = batch["tokens"]
+    targets = tokens[:, 1:]
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    if ce_chunk and cfg.padded_vocab % ce_chunk == 0:
+        x, aux = hidden_states(params, cfg, tokens, use_kernels=use_kernels,
+                               remat=remat)
+        ce = _chunked_ce(cfg, x[:, :-1], head, targets, ce_chunk)
+    else:
+        logits, aux = forward(params, cfg, tokens, use_kernels=use_kernels,
+                              remat=remat)
+        ce = _dense_ce(cfg, logits[:, :-1], targets)
+    return ce, {"ce": ce, **aux}

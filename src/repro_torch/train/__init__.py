@@ -1,1 +1,1 @@
-"""Training loops (port of ``repro.train``: the vision half)."""
+"""Training loops (port of ``repro.train``: the vision and LM trainers)."""

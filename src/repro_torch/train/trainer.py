@@ -1,11 +1,18 @@
-"""Vision training, the paper's own experiments (Table 1): port of the vision
-half of ``repro.train.trainer``.
+"""Training loops (the port of ``repro.train.trainer``).
 
-``make_vision_train_step`` is one step of the paper's recipe: forward with
-(ghost) batch-norm state threading, backward, then momentum SGD with
-clipping, noise and the regime's LR. ``train_vision`` drives it over a
-dataset. Checkpoint/resume, meshes, batch schedules and tracing are not
-ported yet.
+- ``make_vision_train_step`` / ``train_vision``: the paper's own
+  experiments (Table 1): forward with (ghost) batch-norm state threading,
+  backward, then momentum SGD with clipping, noise and the regime's LR.
+- ``make_lm_train_step`` / ``make_lm_eval_step`` / ``train_lm``: next-token
+  LM training of the dense decoders with the same recipe (or Adam),
+  ``use_kernels=True`` through the differentiable kernels.
+
+A step takes ``torch.autograd.grad`` over detached leaves of the parameter
+tree and returns a new tree (the reference's functional update); its
+metrics stay on the device until the loop fetches them in one transfer.
+Gradient noise draws from an explicit ``torch.Generator``.
+Checkpoint/resume, meshes, batch schedules and tracing are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -19,10 +26,12 @@ from repro_torch import tree
 from repro_torch.configs.paper_models import VisionModelConfig
 from repro_torch.core.diffusion import DiffusionTracker
 from repro_torch.core.large_batch import LargeBatchConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regime import Regime
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as T
 from repro_torch.obs.metrics import MetricsLogger
-from repro_torch.optim import sgd
+from repro_torch.optim import adam, sgd
 
 Params = Any
 
@@ -199,3 +208,162 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
         out["log_fit"] = tracker.log_fit(burn_in=2)
         out["power_fit"] = tracker.power_fit(burn_in=2)
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM training (the dense decoders)
+# ---------------------------------------------------------------------------
+
+
+def _needs_parallel_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} comes with the parallel slice "
+                               f"(train/parallel.py)")
+
+
+def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]
+           ) -> List[torch.Tensor]:
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
+def make_lm_train_step(cfg: ModelConfig, lb: LargeBatchConfig,
+                       regime: Regime, *, weight_decay: float = 0.0,
+                       use_kernels: bool = False, remat: bool = False,
+                       seq_parallel: bool = False, ce_chunk: int = 0,
+                       mesh=None, tp: bool = False, fsdp: bool = False,
+                       optimizer: str = "sgd") -> Callable:
+    """(params, opt_state, batch, step, generator=None) -> (params,
+    opt_state, metrics): one step of the paper's recipe on an LM.
+
+    ``use_kernels=True`` runs the attention, norms and SwiGLU through the
+    CUDA kernels and their backward kernels (autograd Functions);
+    ``remat=True`` recomputes each block in the backward; ``ce_chunk``
+    takes the vocab-chunked CE. ``optimizer`` is "sgd" (momentum, clipping,
+    the config's gradient noise from ``generator``; f32 momentum) or
+    "adam". ``mesh``, ``tp``, ``fsdp`` and ``seq_parallel`` raise: the
+    parallel slice."""
+    if mesh is not None or tp or fsdp or seq_parallel:
+        raise _needs_parallel_slice("mesh/tp/fsdp/seq_parallel LM training")
+    if optimizer not in ("sgd", "adam"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    sigma = lb.effective_noise_sigma()
+
+    def train_step(params: Params, opt_state, batch: Dict[str, torch.Tensor],
+                   step: int, generator: Optional[torch.Generator] = None):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree.leaves(params)]
+        loss, metrics = T.lm_loss(tree.unflatten(params, leaves), cfg, batch,
+                                  use_kernels=use_kernels, remat=remat,
+                                  ce_chunk=ce_chunk)
+        grads = tree.unflatten(params, _grads(loss, leaves))
+        detached = tree.unflatten(params, [p.detach() for p in leaves])
+        lr = regime.lr_at(step).to(loss.device)
+        if optimizer == "adam":
+            params2, opt_state2, m = adam.update(
+                grads, opt_state, detached, lr=lr, weight_decay=weight_decay,
+                grad_clip=lb.grad_clip)
+        else:
+            params2, opt_state2, m = sgd.update(
+                grads, opt_state, detached, lr=lr, momentum=lb.momentum,
+                nesterov=lb.nesterov, weight_decay=weight_decay,
+                grad_clip=lb.grad_clip, noise_sigma=sigma,
+                generator=generator)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params2, opt_state2, {"loss": loss.detach(), "lr": lr,
+                                     **metrics, **m}
+
+    return train_step
+
+
+def make_lm_eval_step(cfg: ModelConfig, use_kernels: bool = False
+                      ) -> Callable:
+    """(params, batch) -> mean next-token CE (a 0-d tensor on the device)."""
+
+    @torch.no_grad()
+    def eval_step(params: Params, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        _, metrics = T.lm_loss(params, cfg, batch, use_kernels=use_kernels)
+        return metrics["ce"]
+
+    return eval_step
+
+
+def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
+             rows: np.ndarray, *, seed: int = 0, eval_every: int = 0,
+             holdout: int = 0, use_kernels: bool = False,
+             weight_decay: float = 0.0,
+             log_fn: Optional[Callable[[str], None]] = None, mesh=None,
+             params: Optional[Params] = None,
+             device: DeviceLike = None) -> Dict[str, Any]:
+    """LM twin of :func:`train_vision`: drives :func:`make_lm_train_step`
+    (momentum SGD) over (N, seq_len) token rows with the same structured
+    metrics and deterministic per-epoch shuffling.
+
+    ``holdout`` rows from the end are held out for CE evaluation;
+    ``eval_every`` logs ``train_loss``, ``eval_ce`` and ``lr`` (one host
+    transfer of the step's metrics). ``params`` starts from a given tree
+    (e.g. the reference's parameters carried across by
+    :func:`repro_torch.convert.lm_to_torch`) instead of
+    ``init_params(seed)``. Runs on the card unless ``device="cpu"``.
+    ``mesh`` raises (the parallel slice); the reference's checkpoint/resume,
+    ``obs=`` and diffusion tracking are not ported yet."""
+    if mesh is not None:
+        raise _needs_parallel_slice("train_lm(mesh=)")
+    dev = resolve_device(device)
+    if params is None:
+        params = T.init_params(seed, cfg, dev)
+    opt_state = sgd.init(params)
+    logger = MetricsLogger()
+    step_fn = make_lm_train_step(cfg, lb, regime, weight_decay=weight_decay,
+                                 use_kernels=use_kernels)
+    eval_fn = make_lm_eval_step(cfg, use_kernels=use_kernels)
+    noise_gen = (torch.Generator(device=dev)
+                 if lb.effective_noise_sigma() > 0 else None)
+
+    all_rows = torch.as_tensor(np.asarray(rows), device=dev).long()
+    train_rows = all_rows[: all_rows.shape[0] - holdout] if holdout \
+        else all_rows
+    eval_rows = all_rows[all_rows.shape[0] - holdout:] if holdout \
+        else all_rows[:0]
+    n = train_rows.shape[0]
+    b = lb.batch_size
+    if n < b:
+        raise ValueError(f"{n} rows < batch_size {b}")
+
+    def eval_ce() -> float:
+        """Row-weighted mean CE over the whole holdout, one transfer."""
+        n_eval = eval_rows.shape[0]
+        if n_eval == 0:
+            return float("nan")
+        total = torch.zeros((), device=dev)
+        for i in range(0, n_eval, b):
+            chunk = eval_rows[i:i + b]
+            total = total + eval_fn(params, {"tokens": chunk}) * chunk.shape[0]
+        return float(total) / n_eval
+
+    step = epoch = cursor = 0
+    perm = _epoch_perm(seed, epoch, n, dev)
+    while step < regime.total_steps:
+        if cursor + b > n:
+            epoch += 1
+            cursor = 0
+            perm = _epoch_perm(seed, epoch, n, dev)
+        idx = perm[cursor:cursor + b]
+        cursor += b
+        if noise_gen is not None:
+            noise_gen.manual_seed(_stream_seed(seed, _NOISE, step))
+        params, opt_state, m = step_fn(params, opt_state,
+                                       {"tokens": train_rows[idx]}, step,
+                                       noise_gen)
+        if eval_every and step % eval_every == 0:
+            ce = eval_ce()
+            mh = _host_metrics(m)
+            logger.log(step, eval_ce=ce, train_loss=mh["loss"], lr=mh["lr"])
+            if log_fn:
+                log_fn(f"step {step:5d} loss {mh['loss']:.4f} "
+                       f"eval_ce {ce:.4f}")
+        step += 1
+    return {"final_ce": eval_ce(), "metrics": logger,
+            "history": logger.to_history(), "steps": step,
+            "params": params}

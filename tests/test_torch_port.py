@@ -281,7 +281,8 @@ def test_cuda_rmsnorm_residual_matches_plain(shape, dtype):
     tol = _bf16_tol(dtype)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
-    assert FN.launches == {"rmsnorm_residual": 1}
+    assert FN.launches == {"rmsnorm_residual": 1,
+                           "rmsnorm_residual_backward": 0}
 
 
 @pytest.mark.gpu
@@ -296,7 +297,8 @@ def test_cuda_rmsnorm_without_residual_matches_plain(shape, dtype):
     FN.reset_launches()
     y, s = FN.rmsnorm_residual(x, None, scale)
     assert s is x
-    assert FN.launches == {"rmsnorm_residual": 1}
+    assert FN.launches == {"rmsnorm_residual": 1,
+                           "rmsnorm_residual_backward": 0}
     want, _ = tref.rmsnorm_residual_ref(x, None, scale)
     tol = _bf16_tol(dtype)
     torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
@@ -320,7 +322,7 @@ def test_cuda_swiglu_matches_plain(shape, dtype):
     tol = _bf16_tol(dtype)
     torch.testing.assert_close(h.float(), hr.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(g.float(), gr.float(), rtol=tol, atol=tol)
-    assert SW.launches == {"swiglu": 1}
+    assert SW.launches == {"swiglu": 1, "swiglu_backward": 0}
 
 
 @pytest.mark.gpu
@@ -348,7 +350,8 @@ def test_cuda_flash_attention_matches_plain(shape, causal, window, offs,
     tol = _bf16_tol(dtype)
     torch.testing.assert_close(o.float(), orf.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, lr, rtol=1e-4, atol=1e-4)
-    assert FA.launches == {"flash_attention": 1}
+    assert FA.launches == {"flash_attention": 1, "flash_attention_rope": 0,
+                           "flash_attention_backward": 0}
 
 
 @pytest.mark.gpu
@@ -631,3 +634,246 @@ def test_cuda_continuous_engine_matches_cpu(layout, cache_dtype):
     assert gpu == cpu and sorted(gpu) == list(range(6))
     key = "flash_decode_paged" if layout == "paged" else "flash_decode"
     assert launches[key] == cfg.n_layers * eng.steps
+
+
+# ---------------------------------------------------------------------------
+# on the card: the LM training slice (B4, B6, B7, B8 and their Functions)
+# ---------------------------------------------------------------------------
+
+
+def _randn_card(gen, *shape, dtype=torch.float32, scale=1.0):
+    return (scale * torch.randn(*shape, generator=gen,
+                                device="cuda")).to(dtype)
+
+
+def _close_sum(got, want, tol):
+    """A sum over many rows, formed in another order than the plain
+    version's: held to tol relative to its largest entry."""
+    assert float((got.float() - want.float()).abs().max()) <= tol * max(
+        1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(17, 128), (4096, 2048), (5, 100),
+                                   (300, 7)])
+def test_cuda_rmsnorm_residual_backward_matches_plain(shape, residual, dtype):
+    gen = _on_card()
+    N, d = shape
+    s, dy, ds = (_randn_card(gen, N, d, dtype=dtype) for _ in range(3))
+    scale = torch.linspace(0.5, 1.5, d, device="cuda")
+    ds = ds if residual else None
+    FN.reset_launches()
+    dx, dscale = FN.rmsnorm_residual_backward(s, scale, dy, ds)
+    rdx, rdscale = tref.rmsnorm_residual_backward_ref(s, scale, dy, ds)
+    tol = _bf16_tol(dtype)
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol, atol=tol)
+    _close_sum(dscale, rdscale, tol)
+    again = FN.rmsnorm_residual_backward(s, scale, dy, ds)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dscale)
+    assert FN.launches == {"rmsnorm_residual": 0,
+                           "rmsnorm_residual_backward": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape", [(9, 128, 256), (33, 256, 384),
+                                   (5, 100, 72), (130, 64, 200)])
+def test_cuda_swiglu_backward_matches_plain(shape, dtype):
+    gen = _on_card()
+    N, d, F = shape
+    x = _randn_card(gen, N, d, dtype=dtype)
+    wg, wu = (_randn_card(gen, d, F, dtype=dtype, scale=d ** -0.5)
+              for _ in range(2))
+    dh = _randn_card(gen, N, F, dtype=dtype)
+    g = tref.swiglu_ref(x, wg, wu)[1]
+    SW.reset_launches()
+    got = SW.swiglu_backward(x, wg, wu, g, dh)
+    want = tref.swiglu_backward_ref(x, wg, wu, g, dh)
+    assert got[0].dtype == torch.float32 and got[1].dtype == dtype
+    tol = _bf16_tol(dtype)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    assert SW.launches == {"swiglu": 0, "swiglu_backward": 1}
+
+
+ATTN_TRAIN_CASES = [
+    # (B, H, KV, T, hd), causal, window
+    ((1, 2, 2, 17, 32), True, None),
+    ((2, 4, 2, 100, 128), True, 13),
+    ((1, 8, 1, 128, 64), False, None),
+    ((2, 16, 8, 130, 128), True, None),
+]
+
+
+def _attn_inputs(gen, shape, dtype):
+    B, H, KV, T, hd = shape
+    q, do = (_randn_card(gen, B, H, T, hd, dtype=dtype) for _ in range(2))
+    k, v = (_randn_card(gen, B, KV, T, hd, dtype=dtype) for _ in range(2))
+    pos = (torch.arange(T, device="cuda")[None]
+           + 3 * torch.arange(B, device="cuda")[:, None]).float()
+    return q, k, v, pos, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape,causal,window", ATTN_TRAIN_CASES)
+def test_cuda_flash_attention_rope_matches_plain(shape, causal, window,
+                                                 dtype):
+    gen = _on_card()
+    q, k, v, pos, _ = _attn_inputs(gen, shape, dtype)
+    FA.reset_launches()
+    o, lse = FA.flash_attention_rope_fwd(q, k, v, pos, theta=1e4,
+                                         causal=causal, window=window,
+                                         return_lse=True)
+    orf, lr = tref.attention_rope_ref(q, k, v, pos, theta=1e4, causal=causal,
+                                      window=window, return_lse=True)
+    tol = _bf16_tol(dtype)
+    torch.testing.assert_close(o.float(), orf.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lr, rtol=1e-4, atol=1e-4)
+    assert FA.launches == {"flash_attention": 0, "flash_attention_rope": 1,
+                           "flash_attention_backward": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape,causal,window", ATTN_TRAIN_CASES)
+def test_cuda_flash_attention_backward_matches_plain(shape, causal, window,
+                                                     dtype):
+    gen = _on_card()
+    q, k, v, _, do = _attn_inputs(gen, shape, dtype)
+    o, lse = tref.attention_ref(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    FA.reset_launches()
+    got = FA.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    want = tref.attention_backward_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    tol = 5e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    again = FA.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert FA.launches["flash_attention_backward"] == 2
+
+
+@pytest.mark.gpu
+def test_cuda_autograd_functions_match_plain_autograd():
+    """Each Function's gradients on the card (kernels forward and backward)
+    against torch autograd through the plain forward, f32."""
+    gen = _on_card()
+    from repro_torch.kernels import ops as tops
+
+    def grads(fn, inputs, cot):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(out, cot)), leaves)
+
+    def check(kern, plain, inputs, cot, tol=1e-4):
+        for a, b in zip(grads(kern, inputs, cot), grads(plain, inputs, cot)):
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+    x, r, dy, ds = (_randn_card(gen, 33, 256) for _ in range(4))
+    scale = torch.linspace(0.5, 1.5, 256, device="cuda")
+    check(lambda a, b, c: tops.rmsnorm_residual(a, b, c),
+          lambda a, b, c: tref.rmsnorm_residual_ref(a, b, c),
+          (x, r, scale), (dy, ds))
+    check(lambda a, c: tops.rmsnorm_residual(a, None, c)[0],
+          lambda a, c: tref.rmsnorm_residual_ref(a, None, c)[0],
+          (x, scale), (dy,))
+    wg, wu = (_randn_card(gen, 256, 384, scale=1 / 16) for _ in range(2))
+    check(tops.swiglu, lambda a, b, c: tref.swiglu_ref(a, b, c)[0],
+          (x, wg, wu), (_randn_card(gen, 33, 384),))
+    q, k, v, pos, do = _attn_inputs(gen, (2, 4, 2, 100, 64), torch.float32)
+    model = [t.transpose(1, 2) for t in (q, k, v, do)]
+    check(lambda a, b, c: tops.flash_attention_rope(a, b, c, pos, theta=1e4,
+                                                    window=13),
+          lambda a, b, c: tref.attention_rope_ref(
+              a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2), pos,
+              theta=1e4, window=13).transpose(1, 2),
+          model[:3], model[3:], tol=5e-4)
+    check(lambda a, b, c: tops.flash_attention_hm(a, b, c),
+          lambda a, b, c: tref.attention_ref(a, b, c), (q, k, v), (do,),
+          tol=5e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take():
+    _on_card()
+    s = torch.randn(4, 64, device="cuda")
+    one = torch.ones(64, device="cuda")
+    with pytest.raises(TypeError):
+        FN.rmsnorm_residual_backward(s, one, s.bfloat16(), None)
+    with pytest.raises(ValueError):
+        FN.rmsnorm_residual_backward(s, one, s, s[:2])
+    with pytest.raises(ValueError):
+        FN.rmsnorm_residual_backward(s.t(), torch.ones(4, device="cuda"),
+                                     s.t(), None)
+    x = torch.randn(4, 64, device="cuda")
+    w = torch.randn(64, 32, device="cuda")
+    g = torch.randn(4, 32, device="cuda")
+    with pytest.raises(TypeError):
+        SW.swiglu_backward(x, w, w, g.bfloat16(), g)
+    with pytest.raises(ValueError):
+        SW.swiglu_backward(x, w, w, g[:, :16], g)
+    q = torch.randn(1, 2, 8, 256, device="cuda")
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention_backward(q, q, q, q, lse, q)
+    q = torch.randn(1, 2, 8, 64, device="cuda")
+    with pytest.raises(TypeError):
+        FA.flash_attention_backward(q, q, q, q, lse.double(), q)
+    with pytest.raises(ValueError):
+        FA.flash_attention_rope_fwd(q, q[:, :, :4], q[:, :, :4],
+                                    torch.zeros(1, 8, device="cuda"),
+                                    theta=1e4)
+    with pytest.raises(ValueError):
+        FA.flash_attention_rope_fwd(q, q, q, torch.zeros(2, 8, device="cuda"),
+                                    theta=1e4)
+
+
+@pytest.mark.gpu
+def test_cuda_lm_train_step_has_gradients_on_every_leaf():
+    """A kernel-path train step on the card: every leaf's gradient is
+    non-zero (the norm1 scales and wq included: they are reached only
+    through the autograd Functions), equal to the CPU step's, and the
+    step's loss and parameters equal the CPU plain step's (f32)."""
+    _on_card()
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import make_lm_train_step
+    cfg = dataclasses.replace(get_config("qwen3-1.7b-reduced"),
+                              dtype="float32")
+    p_cpu = TT.init_params(0, cfg, device="cpu")
+    p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 48))
+    grads = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        leaves = [t.detach().requires_grad_(True) for t in tree.leaves(p)]
+        loss, _ = TT.lm_loss(tree.unflatten(p, leaves), cfg,
+                             {"tokens": torch.as_tensor(tokens, device=dev)},
+                             use_kernels=dev == "cuda")
+        grads[dev] = torch.autograd.grad(loss, leaves)
+    for name, (a, b) in zip(range(len(grads["cpu"])),
+                            zip(grads["cuda"], grads["cpu"])):
+        assert float(a.abs().max()) > 0, f"leaf {name} has no gradient"
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    body = p_gpu["stack"]["body"][0][0]
+    assert set(body) >= {"norm1", "mixer", "norm2", "ff"}
+    lb = LargeBatchConfig(batch_size=2, base_batch_size=2, grad_clip=1.0)
+    reg = Regime(base_lr=0.01, total_steps=4, drop_every=4)
+    outs = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        step = make_lm_train_step(cfg, lb, reg, use_kernels=dev == "cuda")
+        outs[dev] = step(p, sgd.init(p), {"tokens": torch.as_tensor(
+            tokens, device=dev)}, 0)
+    torch.testing.assert_close(outs["cuda"][2]["loss"].cpu(),
+                               outs["cpu"][2]["loss"], rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree.leaves(outs["cuda"][0]), tree.leaves(outs["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
