@@ -83,7 +83,32 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    counters;
 14. reduced qwen3 in f32: one train step on the card (kernels) against
    the same step on the CPU (plain versions) from the same parameters:
-   loss within LOSS_TOL, parameters within TOL.
+   loss within LOSS_TOL, parameters within TOL;
+15. the Mamba chunk-scan kernels (mamba_chunk, B10; mamba_chunk_backward,
+   B11) against their plain versions on the card: the reference tests'
+   shapes, a ragged chunk, a d_inner of 100 and the full-width
+   (8, 256, 8192, 16) of phases 16 and 17, f32 at TOL and bf16 inputs at
+   BF16_TOL, a non-zero h0 and live cotangents on both outputs; the
+   backward repeats bit for bit, dt = 0 steps pass the state bit for bit,
+   two chained chunks equal one scan, the autograd Function's gradients
+   equal plain autograd; times (CUDA events) of kernel and plain version
+   and the bound (bytes, or one exp a (t, channel, state) at the SFU rate);
+16. full-width falcon-mamba-7b ``generate`` in bf16 (64 layers, random
+   weights from SERVE_SEED), the prompts of phase 7: exactly 128
+   mamba_chunk launches (two chunks a layer, none in decode) and 65
+   rmsnorm_residual launches a forward pass, nothing else; rows 0 and 7
+   equal to their unpadded runs (else the top-2 logit gap where they part);
+   prefill ms, decode ms a step, tokens/s, peak memory, a profiled prefill
+   and decode step;
+17. falcon-mamba-7b training at full width, depth cut to 16 layers (bf16,
+   f32 momentum, B=8 x T=512 of token_lm, lr and clip as phase 13; one warm
+   and five timed steps): exactly 32/32 mamba launches and 17/17 norm
+   launches a step, the loss falling, a remat step equal to the plain one,
+   step ms, tokens/s, peak memory, a profiled step whose kernel counts
+   match the counters;
+18. reduced falcon-mamba in f32, card (kernels) against CPU (plain
+   versions): ragged greedy tokens equal, prefill logits within TOL, one
+   train step's loss within LOSS_TOL and parameters within TOL.
 
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, the paged
@@ -91,7 +116,9 @@ decode per bf16 engine run: its ms from the profiled run, its plain and
 library ms from phase 9's per-call times, its bound from every launch's
 positions; the training kernels per train step: ms from the profiled
 step, plain and library ms from phase 12's per-call times, taken with
-CUDA events). The last line is
+CUDA events; B10 per falcon-mamba generate and B11 per falcon-mamba train
+step: phase 15's per-call times and bound at the full-width f32 shape of
+every such call times the launches, no library call). The last line is
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -763,14 +790,42 @@ def family(name: str) -> str:
     n = name.lower()
     if "rmsnorm_residual_bwd" in n or "rmsnorm_residual_dscale" in n:
         return "rmsnorm_residual_bwd"
+    if "mamba_dbc_reduce" in n:         # B11's second stage
+        return "mamba_chunk_bwd"
     for fam in ("flash_decode_paged", "flash_decode", "flash_fwd",
-                "flash_bwd", "swiglu_bwd", "swiglu", "rmsnorm_residual"):
+                "flash_bwd", "swiglu_bwd", "swiglu", "rmsnorm_residual",
+                "mamba_chunk_fwd", "mamba_chunk_bwd"):
         if fam in n:
             return fam
     if any(s in n for s in ("gemm", "gemv", "sm90", "cutlass", "xmma",
                             "cublas", "nvjet")):
         return "cublas_gemm"
     return "other"
+
+
+def family_profile(label, fn):
+    """Host ms of one synchronized call and one profiled call's device ms
+    by kernel family: {"host_ms", "busy_ms", "families", "calls"}."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy, kernels = profile_device_ms(fn, reps=1)
+    fam, calls = {}, {}
+    for t, count, name in kernels:
+        fam[family(name)] = fam.get(family(name), 0.0) + t
+        calls[family(name)] = calls.get(family(name), 0) + count
+    busy = busy or 0.0
+    log(f"  profile {label}: device ms by family "
+        f"{ {k: round(v, 3) for k, v in sorted(fam.items())} } (kernels "
+        f"{dict(sorted(calls.items()))}); busy {busy:.3f} ms of a "
+        f"{host_ms:.3f} ms call (idle share {1 - busy / host_ms:.3f})")
+    for t, count, name in sorted(kernels, reverse=True)[:8]:
+        log(f"    {t:9.3f} ms  x{count:<4d} {name[:80]}")
+    return {"host_ms": host_ms, "busy_ms": busy, "families": fam,
+            "calls": calls}
 
 
 def serve_params():
@@ -871,31 +926,12 @@ def phase_serve(params):
         f"({SERVE_B / dec * 1e3:.1f} tokens/s at B={SERVE_B})")
 
     # where the time goes: one profiled decode step and one prefill
-    breakdown = {}
-    for label, fn in (
-            ("decode step", lambda: step(params, cache, tok,
-                                         SERVE_P + n - 2, offsets=off)),
-            ("prefill", lambda: prefill_fused(
-                params, cfg, prompts,
-                TT.init_cache(cfg, SERVE_B, SERVE_P + n), offsets=off))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        busy, kernels = profile_device_ms(fn, reps=1)
-        fam = {}
-        for t, _, name in kernels:
-            fam[family(name)] = fam.get(family(name), 0.0) + t
-        busy = busy or 0.0
-        breakdown[label] = {"host_ms": host_ms, "busy_ms": busy,
-                            "families": fam}
-        log(f"  profile {label}: device ms by family "
-            f"{ {k: round(v, 3) for k, v in sorted(fam.items())} }; busy "
-            f"{busy:.3f} ms of a {host_ms:.3f} ms call (idle share "
-            f"{1 - busy / host_ms:.3f})")
-        for t, count, name in sorted(kernels, reverse=True)[:8]:
-            log(f"    {t:9.3f} ms  x{count:<4d} {name[:80]}")
+    breakdown = {
+        "decode step": family_profile("decode step", lambda: step(
+            params, cache, tok, SERVE_P + n - 2, offsets=off)),
+        "prefill": family_profile("prefill", lambda: prefill_fused(
+            params, cfg, prompts, TT.init_cache(cfg, SERVE_B, SERVE_P + n),
+            offsets=off))}
     del cache
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_ms": wall * 1e3,
@@ -2001,39 +2037,20 @@ def phase_lm_train():
     del rp, rm, prev
 
     # where the time goes: one profiled step (its output is dropped)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step_fn(*state, batch, TRAIN_STEPS + 1)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    busy, kernels = profile_device_ms(
-        lambda: step_fn(*state, batch, TRAIN_STEPS + 1), reps=1)
-    fam, calls = {}, {}
-    for t, count, kname in kernels:
-        f = family(kname)
-        fam[f] = fam.get(f, 0.0) + t
-        calls[f] = calls.get(f, 0) + count
-    busy = busy or 0.0
-    log(f"  profile train step: device ms by family "
-        f"{ {k: round(v, 3) for k, v in sorted(fam.items())} } (launches "
-        f"{dict(sorted(calls.items()))}); busy {busy:.1f} ms of a "
-        f"{host_ms:.1f} ms step (idle share {1 - busy / host_ms:.3f})")
-    for t, count, kname in sorted(kernels, reverse=True)[:10]:
-        log(f"    {t:9.3f} ms  x{count:<4d} {kname[:80]}")
+    prof = family_profile("train step", lambda: step_fn(
+        *state, batch, TRAIN_STEPS + 1))
     # the profiled step ran the training kernels as the counters say
     for name, (*_, fam_name, per_call) in TRAIN_KERNELS.items():
-        if calls.get(fam_name, 0) != per_call * launches[name]:
+        if prof["calls"].get(fam_name, 0) != per_call * launches[name]:
             raise AssertionError(f"profiled {fam_name} kernels "
-                                 f"{calls.get(fam_name)}, want "
+                                 f"{prof['calls'].get(fam_name)}, want "
                                  f"{per_call} x {launches[name]}")
     del state
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "times": times,
             "tok_s": tok_s, "peak_gib": peak, "step_peak_gib": step_peak,
             "remat_peak_gib": remat_peak, "losses": losses,
-            "remat_diff": diff,
-            "breakdown": {"host_ms": host_ms, "busy_ms": busy,
-                          "families": fam, "calls": calls}}
+            "remat_diff": diff, "breakdown": prof}
 
 
 def phase_train_cuda_vs_cpu():
@@ -2108,6 +2125,576 @@ def train_rows(kern, train):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the SSM slice: falcon-mamba-7b serving and training (B10, B11, and the
+# norm kernels B3, B4 under their autograd Functions)
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_TRAIN_LAYERS = 16      # full width, depth cut from 64 to fit one card
+# An accurate expf is one exp2 on the SFU: 16 results a clock an SM at
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput), 132 SMs, the H100 SXM's 1,980 MHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+MAMBA_SHAPES = [(1, 8, 128, 8), (2, 16, 256, 16), (2, 32, 512, 16),
+                (2, 13, 128, 8), (2, 16, 100, 16)]
+MAMBA_KERNELS = {
+    # name: (TPU kernel it replaces, profiler family, kernels a call)
+    "mamba_chunk": ("src/repro/kernels/mamba_scan.py:60", "mamba_chunk_fwd",
+                    1),
+    "mamba_chunk_backward": ("src/repro/kernels/mamba_scan.py:166",
+                             "mamba_chunk_bwd", 2),
+}
+
+
+def mamba_full_shape():
+    """(B, c, di, ds) of every B10/B11 call of phases 16 and 17: B=8 rows,
+    a 256-step chunk, falcon-mamba-7b's d_inner and d_state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import DEFAULT_CHUNK
+    cfg = get_config(MAMBA_ARCH)
+    return (SERVE_B, DEFAULT_CHUNK, cfg.ssm.d_inner(cfg.d_model),
+            cfg.ssm.d_state)
+
+
+def mamba_work(B, c, di, ds, esize=4, backward=False):
+    """(bytes, exps) of one call: each input read once, each output written
+    once (xc, dt, Bm, Cm in ``esize`` bytes; A, h0, y, h_last, dy, dh_last,
+    dA, dh0 in f32); one exp a (t, channel, state), which the function
+    needs (the backward kernel takes a second in its recompute)."""
+    nbytes = esize * (2 * B * c * di + 2 * B * c * ds) + 4 * (di * ds
+                                                              + B * di * ds)
+    if backward:    # dy, dh_last; dxc, ddt, dB, dC, dA, dh0
+        nbytes += 4 * (B * c * di + B * di * ds) \
+            + esize * (2 * B * c * di + 2 * B * c * ds) \
+            + 4 * (di * ds + B * di * ds)
+    else:           # y, h_last
+        nbytes += 4 * (B * c * di + B * di * ds)
+    return nbytes, B * c * di * ds
+
+
+def mamba_bound(nbytes, exps):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, exps / SFU_EXP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def mamba_inputs(gen, B, c, di, ds, dtype):
+    """(xc, dt, Bm, Cm, A, h0), and the cotangents dy, dh_last, drawn as
+    tests/test_kernels.py draws them."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    xc = randn(B, c, di).to(dtype)
+    dt = (0.1 * F.softplus(randn(B, c, di))).to(dtype)
+    Bm, Cm = randn(B, c, ds).to(dtype), randn(B, c, ds).to(dtype)
+    A = -randn(di, ds).abs()
+    return [xc, dt, Bm, Cm, A, randn(B, di, ds)], randn(B, c, di), \
+        randn(B, di, ds)
+
+
+def worst_close(label, pairs, tol):
+    """allclose(rtol=atol=tol) of every (name, got, want); one log line with
+    the largest error; raises naming the first pair outside."""
+    errs = {}
+    for name, got, want in pairs:
+        g, w = got.detach().double(), want.detach().double()
+        errs[name] = float((g - w).abs().max())
+        if bool(((g - w).abs() > tol + tol * w.abs()).any()):
+            raise AssertionError(f"{label} {name}: outside rtol=atol={tol} "
+                                 f"(max abs err {errs[name]:.3e})")
+    log(f"  {label:<40} max_abs_err {max(errs.values()):.3e} "
+        f"({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}) tol {tol:g}")
+    return max(errs.values())
+
+
+def mamba_da_f64(ins, dy, dhl, kern_da, plain_da):
+    """Each f32 dA against autograd through the recurrence in float64 (a
+    measurement beside phase 15's check, not a gate)."""
+    import torch
+    x, dt, Bm, Cm, A, h = (t.double() for t in ins)
+    A = A.requires_grad_(True)
+    loss = 0.0
+    with torch.enable_grad():
+        for t in range(x.shape[1]):
+            h = torch.exp(dt[:, t, :, None] * A) * h \
+                + (dt[:, t] * x[:, t])[:, :, None] * Bm[:, t, None, :]
+            loss = loss + (torch.einsum("bds,bs->bd", h, Cm[:, t])
+                           * dy[:, t].double()).sum()
+        loss = loss + (h * dhl.double()).sum()
+        da, = torch.autograd.grad(loss, A)
+    log(f"  dA at the full-width shape against float64: kernel max abs err "
+        f"{float((kern_da.double() - da).abs().max()):.3e}, plain "
+        f"{float((plain_da.double() - da).abs().max()):.3e}, largest "
+        f"|dA| {float(da.abs().max()):.4g}")
+
+
+def phase_mamba_kernels():
+    """Phase 15: B10 (mamba_chunk) and B11 (mamba_chunk_backward) against
+    their plain versions on the card, at the reference tests' shapes, a
+    ragged chunk (c=13), a d_inner of 100 and the full-width (8, 256, 8192,
+    16) of phases 16 and 17: f32 at TOL, bf16 inputs at BF16_TOL (the
+    forward computes in f32 from the same values and is held to TOL), a
+    non-zero h0 and live cotangents on both outputs. The backward repeats
+    bit for bit; dt = 0 steps pass the state bit for bit (a left-padded
+    row equals its unpadded run); two chained chunks equal one scan; the
+    autograd Function's gradients equal plain autograd through the plain
+    forward. Device times (CUDA events) of kernel and plain version at the
+    full-width f32 shape, and the bound. Returns {name: {"err", "ms",
+    "plain_ms", "work"}}; err is the largest f32 error."""
+    import torch
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    full = mamba_full_shape()
+    out = {k: {"err": 0.0} for k in MAMBA_KERNELS}
+    names = ("dxc", "ddt", "dB", "dC", "dA", "dh0")
+    log("mamba kernels vs plain: f32 at TOL, bf16 inputs at BF16_TOL")
+    for shape in MAMBA_SHAPES + [full]:
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            label = f"{shape} {'f32' if f32 else 'bf16'}"
+            ins, dy, dhl = mamba_inputs(gen, *shape, dtype)
+            e_f = worst_close(f"mamba_chunk {label}", zip(
+                ("y", "h_last"), MS.mamba_chunk(*ins),
+                ref.mamba_chunk_ref(*ins)), TOL)
+            got = MS.mamba_chunk_backward(*ins, dy, dhl)
+            want = ref.mamba_chunk_backward_ref(*ins, dy, dhl)
+            for g, w in zip(got, want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"backward {label}: {g.dtype} "
+                                         f"{tuple(g.shape)} vs {w.dtype} "
+                                         f"{tuple(w.shape)}")
+            # dA sums B x c terms per (channel, state) in another order
+            # than the plain version: held to tol relative to its largest
+            # entry, as check_sum holds the GBN kernels' dgamma, dbeta
+            e_b = max(worst_close(f"mamba_chunk_backward {label}", (
+                (n, g.float(), w.float()) for n, g, w in zip(names, got, want)
+                if n != "dA"), TOL if f32 else BF16_TOL),
+                check_sum(f"mamba_chunk_backward {label} dA", got[4],
+                          want[4], TOL if f32 else BF16_TOL))
+            if shape == full and f32:
+                mamba_da_f64(ins, dy, dhl, got[4], want[4])
+            if f32:
+                out["mamba_chunk"]["err"] = max(out["mamba_chunk"]["err"],
+                                                e_f)
+                out["mamba_chunk_backward"]["err"] = max(
+                    out["mamba_chunk_backward"]["err"], e_b)
+            if shape == full:
+                again = MS.mamba_chunk_backward(*ins, dy, dhl)
+                if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                    raise AssertionError("the backward does not repeat")
+            del ins, dy, dhl, got, want
+    log("  the backward repeats bit for bit at the full-width shape")
+
+    # dt = 0 steps (left pads) pass the state bit for bit
+    ins, _, _ = mamba_inputs(gen, *full, torch.float32)
+    padded = [t.clone() for t in ins]
+    padded[1][:, :100] = 0
+    y, h = MS.mamba_chunk(*padded)
+    ys, hs = MS.mamba_chunk(*(t[:, 100:].contiguous() for t in ins[:4]),
+                            ins[4], ins[5])
+    exact = torch.equal(h, hs) and torch.equal(y[:, 100:], ys)
+    log(f"  100 dt=0 steps then 156 steps == the 156 steps alone: "
+        f"{'bit for bit' if exact else 'DIFFERENT'}")
+    if not exact:
+        raise AssertionError("padded steps changed the state")
+    del padded
+    # two chained chunks equal one scan
+    y, h = MS.mamba_chunk(*ins)
+    y1, h1 = MS.mamba_chunk(*(t[:, :128].contiguous() for t in ins[:4]),
+                            ins[4], ins[5])
+    y2, h2 = MS.mamba_chunk(*(t[:, 128:].contiguous() for t in ins[:4]),
+                            ins[4], h1)
+    worst_close("two chained chunks == one", (
+        ("y", torch.cat([y1, y2], 1), y), ("h_last", h2, h)), TOL)
+    # the autograd Function against plain autograd through the plain forward
+    small, _, _ = mamba_inputs(gen, 2, 40, 256, 16, torch.float32)
+    cot = mamba_inputs(gen, 2, 40, 256, 16, torch.float32)[1:]
+    grads = []
+    for fn in (ops.mamba_chunk, ref.mamba_chunk_ref):
+        leaves = [t.detach().requires_grad_(True) for t in small]
+        yy, hh = fn(*leaves)
+        grads.append(torch.autograd.grad(
+            (yy * cot[0]).sum() + (hh * cot[1]).sum(), leaves))
+    worst_close("autograd Function vs plain autograd", zip(
+        names, *grads), TOL)
+
+    # times at the full-width f32 shape of the model path (CUDA events)
+    ins, dy, dhl = mamba_inputs(gen, *full, torch.float32)
+    for name, kern, plain, reps in (
+            ("mamba_chunk", lambda: MS.mamba_chunk(*ins),
+             lambda: ref.mamba_chunk_ref(*ins), 3),
+            ("mamba_chunk_backward",
+             lambda: MS.mamba_chunk_backward(*ins, dy, dhl),
+             lambda: ref.mamba_chunk_backward_ref(*ins, dy, dhl), 2)):
+        row = out[name]
+        row["ms"], row["plain_ms"] = time_ms(kern), time_ms(plain, reps)
+        row["work"] = mamba_work(*full, backward=name != "mamba_chunk")
+        bms, by = mamba_bound(*row["work"])
+        log(f"  timing {name} {full} f32: {row['ms']:.4f} ms a call (plain "
+            f"{row['plain_ms']:.3f}); bound {bms:.4f} ms by {by} "
+            f"({row['work'][0] / 1e6:.1f} MB, {row['work'][1] / 1e6:.1f} M "
+            f"exps)")
+    del ins, dy, dhl
+    torch.cuda.empty_cache()
+    return out
+
+
+def all_launches():
+    """Every launch counter of the decoder kernels, the SSM pair included."""
+    from repro_torch.kernels import mamba_scan as MS
+    return {**serving_launches(), **MS.launches}
+
+
+def reset_all_launches():
+    from repro_torch.kernels import mamba_scan as MS
+    reset_serving_launches()
+    MS.reset_launches()
+
+
+def want_launches(**counts):
+    """Every counter 0 but those given."""
+    return {**{k: 0 for k in all_launches()}, **counts}
+
+
+def mamba_params(cfg):
+    """Random weights from SERVE_SEED at the config's widths, bf16."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer as TT
+    t0 = time.perf_counter()
+    params = TT.init_params(SERVE_SEED, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} d_inner "
+        f"{cfg.ssm.d_inner(cfg.d_model)} d_state {cfg.ssm.d_state} dt_rank "
+        f"{cfg.ssm.resolved_dt_rank(cfg.d_model)} vocab {cfg.vocab_size} "
+        f"(untied head), {n_params / 1e9:.3f} B parameters in {cfg.dtype}, "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def phase_mamba_serve():
+    """Phase 16: full-width falcon-mamba-7b generate in bf16 (random weights
+    from SERVE_SEED): B=8 prompts left-padded to 512 (PROMPT_LENS), greedy,
+    32 new tokens. The launch counters must show 2 mamba_chunk launches a
+    layer (two 256-step chunks of the prefill, none in decode) and 65
+    rmsnorm_residual launches a forward pass (64 layers and the final
+    norm), nothing else; rows 0 and 7 must equal their unpadded runs.
+    Prefill ms, decode ms a step, tokens/s, peak memory, and a profiled
+    prefill and decode step by kernel family."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.ssm import DEFAULT_CHUNK
+    from repro_torch.serving import generate, make_serve_step, prefill_fused
+    cfg = get_config(MAMBA_ARCH)
+    params = mamba_params(cfg)
+    prompts = ragged_prompts(cfg.vocab_size, SERVE_SEED + 1)
+    kw = dict(max_new_tokens=SERVE_NEW, prompt_lens=PROMPT_LENS)
+    generate(params, cfg, prompts, **kw)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, n = cfg.n_layers, SERVE_NEW
+    want = want_launches(mamba_chunk=L * -(-SERVE_P // DEFAULT_CHUNK),
+                         rmsnorm_residual=(L + 1) * n)
+    log(f"  generate: out {tuple(out.shape)} wall {wall * 1e3:.1f} ms "
+        f"({SERVE_B * n / wall:.1f} new tokens/s end to end), peak memory "
+        f"{peak:.2f} GiB; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"falcon-mamba launches {launches}, want {want}")
+    if tuple(out.shape) != (SERVE_B, SERVE_P + n) or \
+            not bool((out[:, SERVE_P:] < cfg.vocab_size).all()) or \
+            not bool((out[:, SERVE_P:] >= 0).all()) or \
+            not torch.equal(out[:, :SERVE_P], prompts):
+        raise AssertionError("generate's output is malformed")
+    for b in (0, SERVE_B - 1):
+        Lb = PROMPT_LENS[b]
+        prompt = prompts[b, SERVE_P - Lb:]
+        solo = generate(params, cfg, prompt[None], max_new_tokens=n)
+        solo, got = solo[0, Lb:].tolist(), out[b, SERVE_P:].tolist()
+        log(f"  row {b} (prompt {Lb}) alone unpadded: "
+            f"{'equal' if solo == got else 'DIFFERENT'}; batch {got[:8]}... "
+            f"solo {solo[:8]}...")
+        if solo != got:
+            d, gap = solo_divergence(params, cfg, prompt.tolist(), solo, got)
+            log(f"  first divergence of row {b} at generated token {d}; "
+                f"top-2 logit gap of the solo run there {gap:.4g}")
+            raise AssertionError(f"row {b} differs from its unpadded run")
+
+    # prefill and decode times (CUDA events, warm)
+    off = serve_offsets(PROMPT_LENS, SERVE_P)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    pre = []
+    for _ in range(3):
+        cache = TT.init_cache(cfg, SERVE_B, SERVE_P + n)
+        start.record()
+        last, cache = prefill_fused(params, cfg, prompts, cache, offsets=off)
+        end.record()
+        torch.cuda.synchronize()
+        pre.append(start.elapsed_time(end))
+    step = make_serve_step(cfg)
+    tok = last.argmax(-1)[:, None]
+    start.record()
+    for i in range(n - 1):
+        tok, cache = step(params, cache, tok, SERVE_P + i, offsets=off)
+    end.record()
+    torch.cuda.synchronize()
+    dec = start.elapsed_time(end) / (n - 1)
+    prefill_ms = sorted(pre)[1]
+    log(f"  prefill {prefill_ms:.2f} ms (runs {[round(t, 2) for t in pre]}) "
+        f"for {SERVE_B}x{SERVE_P} tokens; decode {dec:.3f} ms a step "
+        f"({SERVE_B / dec * 1e3:.1f} tokens/s at B={SERVE_B})")
+    breakdown = {
+        "decode step": family_profile("decode step", lambda: step(
+            params, cache, tok, SERVE_P + n - 2, offsets=off)),
+        "prefill": family_profile("prefill", lambda: prefill_fused(
+            params, cfg, prompts, TT.init_cache(cfg, SERVE_B, SERVE_P + n),
+            offsets=off))}
+    fwd_calls = breakdown["prefill"]["calls"].get("mamba_chunk_fwd", 0)
+    if fwd_calls != launches["mamba_chunk"]:
+        raise AssertionError(f"profiled prefill ran {fwd_calls} B10 "
+                             f"kernels, want {launches['mamba_chunk']}")
+    del cache, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_ms": wall * 1e3,
+            "prefill_ms": prefill_ms, "decode_ms": dec, "peak_gib": peak,
+            "breakdown": breakdown}
+
+
+def mamba_invariance_probe():
+    """Why the SSM mixer computes its two products over d_inner on at least
+    INVARIANT_ROWS rows: for each, the values of the last M rows of a
+    4096-row batch that differ when the M rows are computed alone, with a
+    plain ``x @ w`` and through ``ssm._rows_matmul``. A measurement printed
+    beside phase 16, not a gate."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config(MAMBA_ARCH)
+    di, dtr = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.resolved_dt_rank(
+        cfg.d_model)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    log("batch invariance of the d_inner products (bf16): values of M rows "
+        "alone that differ from the same rows in a batch of 4096")
+    for name, N in (("x_proj", dtr + 2 * cfg.ssm.d_state),
+                    ("out_proj", cfg.d_model)):
+        w = (torch.randn(di, N, generator=gen, device="cuda")
+             / di ** 0.5).bfloat16()
+        x = torch.randn(4096, di, generator=gen, device="cuda").bfloat16()
+        for label, fn in (("x @ w", lambda a: a @ w),
+                          ("_rows_matmul", lambda a: ssm._rows_matmul(a, w))):
+            full = fn(x)
+            counts = {M: int((fn(x[-M:]) != full[-M:]).sum())
+                      for M in (512, 64, 8, 1)}
+            log(f"  {name} ({di} x {N}) {label:<13} " + ", ".join(
+                f"M={M}: {c} of {M * N}" for M, c in counts.items()))
+
+
+def phase_mamba_train():
+    """Phase 17: falcon-mamba-7b training at full width with the depth cut
+    to MAMBA_TRAIN_LAYERS (bf16, random weights from SERVE_SEED, f32
+    momentum): make_lm_train_step(use_kernels=True) on B=8 rows of T=512
+    from token_lm, lr and clip as phase 13, one warm and TRAIN_STEPS timed
+    steps on the repeated batch. A step's launch counters must read exactly
+    2 mamba_chunk and 2 mamba_chunk_backward a layer, one rmsnorm_residual
+    and one rmsnorm_residual_backward a layer and one more each for the
+    final norm, nothing else; the loss must be finite and fall; a
+    remat=True step from the same state must give the same loss and
+    parameters within BF16_TOL (bit-equality is reported). Step ms,
+    tokens/s, peak memory and a profiled step by kernel family, whose B10,
+    B11 and norm-backward kernel counts must match the counters."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.data import lm_sequences, token_lm
+    from repro_torch.models.ssm import DEFAULT_CHUNK
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import make_lm_train_step
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH),
+                              body_repeats=MAMBA_TRAIN_LAYERS)
+    L = cfg.n_layers
+    params = mamba_params(cfg)
+    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
+                                 n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
+    batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
+    lb = LargeBatchConfig(batch_size=TRAIN_B, base_batch_size=TRAIN_B,
+                          grad_clip=1.0)
+    regime = Regime(base_lr=TRAIN_LR, total_steps=100, drop_every=100)
+    step_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True)
+    state = (params, sgd.init(params))
+    del params
+    chunks = L * -(-TRAIN_T // DEFAULT_CHUNK)
+    want = want_launches(mamba_chunk=chunks, mamba_chunk_backward=chunks,
+                         rmsnorm_residual=L + 1,
+                         rmsnorm_residual_backward=L + 1)
+    losses, times, launches = [], [], None
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:      # only this step's input state is held here
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_all_launches()
+        if i == TRAIN_STEPS:
+            prev = state        # the last step's input, for the remat step
+        t0 = time.perf_counter()
+        p2, o2, m = step_fn(*state, batch, i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            launches = all_launches()
+        losses.append(m["loss"])
+        state = (p2, o2)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak, step_peak = peak_bytes / 2 ** 30, (peak_bytes - base) / 2 ** 30
+    losses = torch.stack(losses).tolist()
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    tok_s = TRAIN_B * TRAIN_T / step_ms * 1e3
+    log(f"  train {cfg.name} ({L} layers) bf16 B={TRAIN_B} T={TRAIN_T} lr "
+        f"{TRAIN_LR}: step ms {[round(t, 1) for t in times]} (first is the "
+        f"warm step), median {step_ms:.1f} ms, {tok_s:.0f} tokens/s, peak "
+        f"memory {peak:.2f} GiB ({step_peak:.2f} above the step's input "
+        f"state); losses {[round(x, 4) for x in losses]}; launches a step "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+    # remat: the last step again from its input state, blocks recomputed
+    remat_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True,
+                                  remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # also holds the last output
+    rp, _, rm = remat_fn(*prev, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    remat_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    diff, bad, equal = 0.0, [], True
+    for i, (a, b) in enumerate(zip(tree.leaves(rp), tree.leaves(state[0]))):
+        equal = equal and torch.equal(a, b)
+        a, b = a.float(), b.float()
+        diff = max(diff, float((a - b).abs().max()))
+        if bool(((a - b).abs() > BF16_TOL + BF16_TOL * b.abs()).any()):
+            bad.append(i)
+    loss_diff = abs(float(rm["loss"]) - losses[-1])
+    log(f"  remat step: loss {float(rm['loss']):.6f} vs {losses[-1]:.6f} "
+        f"(diff {loss_diff:.3e}), largest parameter difference {diff:.3e} "
+        f"({'bit-equal' if equal and loss_diff == 0 else 'not bit-equal'}),"
+        f" peak memory {remat_peak:.2f} GiB above its input state (plain "
+        f"step {step_peak:.2f})")
+    if bad or loss_diff > BF16_TOL * (1 + abs(losses[-1])):
+        raise AssertionError(f"remat step differs: loss {loss_diff}, "
+                             f"leaves {bad[:8]}")
+    del rp, rm, prev
+
+    # where the time goes: one profiled step (its output is dropped), which
+    # ran B10, B11 and the norm backward as the counters say
+    prof = family_profile("train step", lambda: step_fn(
+        *state, batch, TRAIN_STEPS + 1))
+    counted = [(name, fam_name, per_call) for name, (_, fam_name, per_call)
+               in MAMBA_KERNELS.items()]
+    counted.append(("rmsnorm_residual_backward",
+                    *TRAIN_KERNELS["rmsnorm_residual_backward"][3:]))
+    for name, fam_name, per_call in counted:
+        if prof["calls"].get(fam_name, 0) != per_call * launches[name]:
+            raise AssertionError(f"profiled {fam_name} kernels "
+                                 f"{prof['calls'].get(fam_name)}, want "
+                                 f"{per_call} x {launches[name]}")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "times": times,
+            "tok_s": tok_s, "peak_gib": peak, "step_peak_gib": step_peak,
+            "remat_peak_gib": remat_peak, "losses": losses,
+            "remat_diff": diff, "remat_bit_equal": equal and loss_diff == 0,
+            "breakdown": prof}
+
+
+def phase_mamba_cuda_vs_cpu():
+    """Phase 18: reduced falcon-mamba in f32, the same parameters on the
+    card (kernels) and the CPU (plain versions): greedy tokens of ragged
+    prompts equal and prefill logits within TOL; one make_lm_train_step
+    step: loss within LOSS_TOL, parameters within TOL."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import sgd
+    from repro_torch.serving import generate
+    from repro_torch.train.trainer import make_lm_train_step
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH + "-reduced"),
+                              dtype="float32")
+    p_cpu = TT.init_params(3, cfg, device="cpu")
+    p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+    P, lens = 300, (300, 131, 9, 1)
+    g = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (len(lens), P), generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 300), generator=g)
+    lb = LargeBatchConfig(batch_size=4, base_batch_size=4, grad_clip=1.0)
+    regime = Regime(base_lr=0.05, total_steps=10, drop_every=10)
+    outs, logits, steps = {}, {}, {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        outs[dev] = generate(p, cfg, prompts, max_new_tokens=8,
+                             prompt_lens=lens, device=dev).cpu()
+        cache = TT.init_cache(cfg, len(lens), P + 1, device=dev)
+        off = torch.tensor([P - L for L in lens], device=dev,
+                           dtype=torch.int32)
+        lg, _ = TT.prefill_forward(p, cfg, prompts.to(dev), cache,
+                                   offsets=off)
+        logits[dev] = lg.cpu()
+        step = make_lm_train_step(cfg, lb, regime, use_kernels=dev == "cuda")
+        p2, _, m = step(p, sgd.init(p), {"tokens": tokens.to(dev)}, 0)
+        steps[dev] = (float(m["loss"]), [t.cpu() for t in tree.leaves(p2)])
+    log(f"mamba cuda vs cpu: {cfg.name} f32, B={len(lens)} P={P} ragged "
+        f"{lens}, 8 new tokens; one train step B=4 T=300: loss "
+        f"{steps['cuda'][0]:.7f} vs {steps['cpu'][0]:.7f}")
+    check_close("prefill logits", logits["cuda"], logits["cpu"], TOL)
+    same = torch.equal(outs["cuda"], outs["cpu"])
+    log(f"  greedy tokens {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("greedy tokens differ between cuda and cpu")
+    check_close("train step loss", torch.tensor(steps["cuda"][0]),
+                torch.tensor(steps["cpu"][0]), LOSS_TOL)
+    check_close("train step params",
+                torch.cat([t.reshape(-1) for t in steps["cuda"][1]]),
+                torch.cat([t.reshape(-1) for t in steps["cpu"][1]]), TOL)
+
+
+def mamba_rows(kern, serve, train):
+    """One JSON row per SSM kernel: B10 per falcon-mamba generate (its
+    launches there), B11 per train step; ms, plain ms and the bound are
+    the per-call numbers at the full-width f32 shape of every such call
+    (phase 15) times the launches."""
+    rows = []
+    for name, (replaces, fam_name, _) in MAMBA_KERNELS.items():
+        k = kern[name]
+        n = (serve if name == "mamba_chunk" else train)["launches"][name]
+        bms, by = mamba_bound(*k["work"])
+        in_path = (serve["breakdown"]["prefill"] if name == "mamba_chunk"
+                   else train["breakdown"])["families"].get(fam_name, 0.0)
+        log(f"  {name}: {k['ms'] * n:.3f} ms from its per-call time x {n}; "
+            f"{in_path:.3f} ms in the profiled "
+            f"{'prefill' if name == 'mamba_chunk' else 'train step'}")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": replaces, "launches": n, "max_abs_err": k["err"],
+            "ms": k["ms"] * n, "plain_ms": k["plain_ms"] * n,
+            "bound_ms": bms * n, "bound_by": by, "library_ms": None})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2178,6 +2765,16 @@ def main() -> int:
         lap("train")
         phase_train_cuda_vs_cpu()
         lap("train cuda vs cpu")
+        # slice 5: falcon-mamba-7b (SSM) serving and training
+        mamba_kern = phase_mamba_kernels()
+        lap("mamba kernels")
+        mamba_serve = phase_mamba_serve()
+        mamba_invariance_probe()
+        lap("mamba serve")
+        mamba_train = phase_mamba_train()
+        lap("mamba train")
+        phase_mamba_cuda_vs_cpu()
+        lap("mamba cuda vs cpu")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2187,7 +2784,8 @@ def main() -> int:
     serving = serving_rows(kern, serve)
     paged = paged_row(paged_err, engine, paged_timing)
     training = train_rows(train_kern, train)
-    kernels = gbn + serving + [paged] + training
+    mamba = mamba_rows(mamba_kern, mamba_serve, mamba_train)
+    kernels = gbn + serving + [paged] + training + mamba
     log(f"resnet44 step (B={BATCH}): median warm step {step_ms:.2f} ms; "
         f"GBN kernels {gbn[0]['ms'] + gbn[1]['ms']:.3f} ms a step "
         f"(bound {gbn[0]['bound_ms'] + gbn[1]['bound_ms']:.3f} ms)")
@@ -2226,6 +2824,19 @@ def main() -> int:
         f"training kernels per step " + ", ".join(
             f"{r['name']} {r['ms']:.2f} ms (bound {r['bound_ms']:.3f})"
             for r in training))
+    ms_, mt_ = mamba_serve, mamba_train
+    log(f"serve {MAMBA_ARCH} (B={SERVE_B}, P={SERVE_P} ragged, {SERVE_NEW} "
+        f"new tokens): generate {ms_['wall_ms']:.1f} ms, prefill "
+        f"{ms_['prefill_ms']:.2f} ms, decode {ms_['decode_ms']:.3f} ms a "
+        f"step, {SERVE_B * SERVE_NEW / ms_['wall_ms'] * 1e3:.1f} new "
+        f"tokens/s, peak {ms_['peak_gib']:.2f} GiB; train "
+        f"{MAMBA_TRAIN_LAYERS} layers (bf16, B={TRAIN_B}, T={TRAIN_T}): "
+        f"median step {mt_['step_ms']:.1f} ms, {mt_['tok_s']:.0f} tokens/s, "
+        f"peak {mt_['peak_gib']:.2f} GiB ({mt_['step_peak_gib']:.2f} above "
+        f"the step's input state; remat {mt_['remat_peak_gib']:.2f}); "
+        + ", ".join(f"{r['name']} {r['ms']:.2f} ms (bound "
+                    f"{r['bound_ms']:.3f}, {r['launches']} launches)"
+                    for r in mamba))
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
         f" (seconds by part: {took})")
     log(smi)

@@ -1,15 +1,16 @@
 """The configurations the port can run, by name: the decoder models whose
-path is ported (``qwen3-1.7b``, and ``<name>-reduced`` for its CPU-smoke
-variant) and the paper's vision models."""
+path is ported (``qwen3-1.7b``, ``falcon-mamba-7b``, and ``<name>-reduced``
+for each one's CPU-smoke variant) and the paper's vision models."""
 from __future__ import annotations
 
 from typing import Dict, List, Union
 
-from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs import falcon_mamba_7b, qwen3_1_7b
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_models import PAPER_MODELS, VisionModelConfig
 
-_ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (qwen3_1_7b.CONFIG,)}
+_ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (qwen3_1_7b.CONFIG, falcon_mamba_7b.CONFIG)}
 
 
 def get_config(name: str) -> Union[ModelConfig, VisionModelConfig]:

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 SOURCES = ("gbn.cu", "rmsnorm_residual.cu", "swiglu.cu", "swiglu_bwd.cu",
            "flash_attention.cu", "flash_attention_bwd.cu", "flash_decode.cu",
-           "flash_decode_paged.cu")
+           "flash_decode_paged.cu", "mamba_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

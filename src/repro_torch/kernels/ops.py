@@ -34,6 +34,7 @@ import torch
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_norm as FN
 from repro_torch.kernels import gbn as K
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import swiglu as SW
 from repro_torch.kernels.flash_decode import flash_decode as _flash_decode
 from repro_torch.kernels.flash_decode import \
@@ -270,3 +271,29 @@ def swiglu(x: Tensor, wg: Tensor, wu: Tensor) -> Tensor:
     h = _SwiGLU.apply(x.reshape(-1, d).contiguous(), wg.contiguous(),
                       wu.contiguous())
     return h.reshape(x.shape[:-1] + (F,))
+
+
+class _MambaChunk(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, xc: Tensor, dt: Tensor, Bm: Tensor, Cm: Tensor,
+                A: Tensor, h0: Tensor):
+        y, h_last = MS.mamba_chunk(xc, dt, Bm, Cm, A, h0)
+        ctx.save_for_backward(xc, dt, Bm, Cm, A, h0)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy: Tensor, dh_last: Tensor):
+        return MS.mamba_chunk_backward(*ctx.saved_tensors, dy.contiguous(),
+                                       dh_last.contiguous())
+
+
+def mamba_chunk(xc: Tensor, dt: Tensor, Bm: Tensor, Cm: Tensor, A: Tensor,
+                h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """One chunk of the selective scan: xc, dt (B, c, di); Bm, Cm
+    (B, c, ds); A (di, ds) f32; h0 (B, di, ds) f32 -> (y (B, c, di) f32,
+    h_last (B, di, ds) f32). Differentiable w.r.t. all six inputs through
+    the backward kernel (no replay of the forward)."""
+    return _MambaChunk.apply(xc.contiguous(), dt.contiguous(),
+                             Bm.contiguous(), Cm.contiguous(),
+                             A.contiguous(), h0.contiguous())

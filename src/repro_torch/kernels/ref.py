@@ -18,6 +18,10 @@ wrapper, and what ``chip_smoke.py`` holds each CUDA kernel to on the card.
   in the kernels, where the JAX oracle returns the mean of V; such rows are
   masked out of every later attention.
 - ``quantize_slots`` is the int8 KV pool's per-slot quantizer.
+- ``mamba_chunk_ref`` is the sequential selective-scan recurrence of
+  ``repro.kernels.ref.mamba_chunk_ref`` in f32; its backward
+  ``mamba_chunk_backward_ref`` is autograd through it, as the reference's
+  oracle VJP is ``jax.vjp`` of its forward.
 """
 from __future__ import annotations
 
@@ -472,3 +476,41 @@ def flash_decode_paged_ref(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
     out = acc / l.clamp_min(1e-30)[..., None]
     out = out * seen[:, None, None, None]                    # no slot -> 0
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# mamba chunk scan
+# ---------------------------------------------------------------------------
+
+
+def mamba_chunk_ref(xc: Tensor, dt: Tensor, Bm: Tensor, Cm: Tensor,
+                    A: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """One chunk of the selective scan, step by step in f32:
+    ``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t``, ``y_t = h_t . C_t``.
+
+    xc, dt: (B, c, di); Bm, Cm: (B, c, ds); A: (di, ds); h0: (B, di, ds).
+    Returns (y (B, c, di) f32, h_last (B, di, ds) f32)."""
+    xc, dt, Bm, Cm, A, h = (t.float() for t in (xc, dt, Bm, Cm, A, h0))
+    ys = []
+    for t in range(xc.shape[1]):
+        dt_t = dt[:, t]
+        a = torch.exp(dt_t[:, :, None] * A)                  # (B, di, ds)
+        h = a * h + (dt_t * xc[:, t])[:, :, None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def mamba_chunk_backward_ref(xc: Tensor, dt: Tensor, Bm: Tensor, Cm: Tensor,
+                             A: Tensor, h0: Tensor, dy: Tensor,
+                             dh_last: Tensor) -> Tuple[Tensor, ...]:
+    """VJP of :func:`mamba_chunk_ref` w.r.t. all six inputs, by autograd
+    through it. dy (B, c, di) and dh_last (B, di, ds) are the cotangents of
+    y and h_last. Returns (dxc, ddt, dB, dC, dA, dh0), each in its input's
+    dtype, as ``mamba_chunk_backward_pallas`` returns them."""
+    ins = [t.detach().requires_grad_(True) for t in (xc, dt, Bm, Cm, A, h0)]
+    with torch.enable_grad():
+        y, h = mamba_chunk_ref(*ins)
+        grads = torch.autograd.grad((y, h), ins, (dy.float(),
+                                                  dh_last.float()))
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (xc, dt, Bm, Cm, A,
+                                                       h0)))

@@ -1,16 +1,21 @@
 """LayerSpec interpreter (the port of ``repro.models.blocks``): one block
-is a pre-norm attention sublayer (``mixer="attn"`` or sliding-window
-``"swa"``) and a dense SwiGLU sublayer, run with no cache (the training
-forward, optionally rematerialized block by block) or against its cache in
-fused-prefill or one-token decode mode.
+is a pre-norm sequence mixer (attention ``mixer="attn"``, sliding-window
+``"swa"`` or the Mamba ``"ssm"``) and, where the spec has one, a dense
+SwiGLU sublayer (``ff="dense"``; an ssm block of falcon-mamba has
+``ff="none"``: the mixer is the whole block), run with no cache (the
+training forward, optionally rematerialized block by block) or against its
+cache in fused-prefill or one-token decode mode. An ssm block's cache is
+``{"ssm": {"h", "conv"}}``: the f32 state (B, d_inner, d_state) and the
+last ``d_conv - 1`` inputs (B, d_conv - 1, d_inner), f32 as in the
+reference.
 
 The JAX package scans the repeating body over stacked parameters; the port
 holds one tree per layer: ``stack["body"][j][i]`` is repeat ``i`` of body
 slot ``j`` (``repro_torch.convert.lm_to_torch`` unstacks), and a Python
 loop runs the layers in the reference's order.
 
-Cross-attention, SSM and MoE blocks and tensor parallelism wait for
-their slices: reaching one raises ``NotImplementedError`` naming it.
+Cross-attention and MoE blocks and tensor parallelism wait for their
+slices: reaching one raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -30,9 +36,6 @@ def _supported(spec: LayerSpec) -> None:
     if spec.cross_attn:
         raise NotImplementedError("cross-attention blocks come with the "
                                   "encoder/VLM slice")
-    if spec.mixer == "ssm":
-        raise NotImplementedError("SSM (mamba) blocks come with the SSM "
-                                  "slice")
     if spec.ff == "moe":
         raise NotImplementedError("MoE blocks come with the MoE slice")
 
@@ -50,6 +53,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     if spec.mixer in ("attn", "swa"):
         p["norm1"] = L.norm_init(cfg, cfg.d_model, dev)
         p["mixer"] = L.attention_init(gen, cfg, dtype)
+    elif spec.mixer == "ssm":
+        p["norm1"] = L.norm_init(cfg, cfg.d_model, dev)
+        p["mixer"] = SSM.ssm_init(gen, cfg, dtype)
     if spec.ff == "dense":
         p["norm2"] = L.norm_init(cfg, cfg.d_model, dev)
         p["ff"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
@@ -73,6 +79,8 @@ def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                                     layout=layout, page_size=page_size,
                                     total_pages=total_pages,
                                     cache_dtype=cache_dtype, device=device)
+    elif spec.mixer == "ssm":
+        c["ssm"] = SSM.init_ssm_cache(cfg, batch, device=device)
     return c
 
 
@@ -106,6 +114,27 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
                                            positions, cache["attn"],
                                            window=window, offsets=offsets,
                                            use_kernels=use_kernels)
+    elif spec.mixer == "ssm":
+        h = L.norm_apply(cfg, params["norm1"], x, use_kernels=use_kernels)
+        if cache is None:
+            y_mix = SSM.ssm_forward(params["mixer"], cfg, h,
+                                    use_kernels=use_kernels)
+        else:
+            if decode:
+                y_mix, sc = SSM.ssm_decode(params["mixer"], cfg, h,
+                                           cache["ssm"])
+            else:
+                valid = None
+                if offsets is not None:
+                    valid = torch.arange(x.shape[1], device=x.device)[None] \
+                        >= offsets[:, None]
+                y_mix, sc = SSM.ssm_prefill(params["mixer"], cfg, h,
+                                            valid=valid,
+                                            use_kernels=use_kernels)
+            # in place, cast to the cache's dtypes (a bf16 model's conv
+            # state was rounded through bf16 on the way)
+            for name, leaf in cache["ssm"].items():
+                leaf.copy_(sc[name])
     if spec.ff == "dense":
         # the mixer's residual add fused with the ff pre-norm
         if y_mix is not None:

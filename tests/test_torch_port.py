@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import fused_norm as FN
 from repro_torch.kernels import gbn as K
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import swiglu as SW
 
@@ -868,6 +869,144 @@ def test_cuda_lm_train_step_has_gradients_on_every_leaf():
     assert set(body) >= {"norm1", "mixer", "norm2", "ff"}
     lb = LargeBatchConfig(batch_size=2, base_batch_size=2, grad_clip=1.0)
     reg = Regime(base_lr=0.01, total_steps=4, drop_every=4)
+    outs = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        step = make_lm_train_step(cfg, lb, reg, use_kernels=dev == "cuda")
+        outs[dev] = step(p, sgd.init(p), {"tokens": torch.as_tensor(
+            tokens, device=dev)}, 0)
+    torch.testing.assert_close(outs["cuda"][2]["loss"].cpu(),
+                               outs["cpu"][2]["loss"], rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree.leaves(outs["cuda"][0]), tree.leaves(outs["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the SSM slice on the card (B10, B11)
+# ---------------------------------------------------------------------------
+
+
+def _mamba_card(gen, B, c, di, ds, dtype=torch.float32):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    xc = randn(B, c, di).to(dtype)
+    dt = (0.1 * torch.nn.functional.softplus(randn(B, c, di))).to(dtype)
+    Bm, Cm = randn(B, c, ds).to(dtype), randn(B, c, ds).to(dtype)
+    A = -randn(di, ds).abs()
+    h0 = randn(B, di, ds)
+    return xc, dt, Bm, Cm, A, h0, randn(B, c, di), randn(B, di, ds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 8, 128, 8), (2, 16, 256, 16),
+                                   (2, 32, 512, 16), (2, 13, 128, 8),
+                                   (2, 16, 100, 16), (3, 300, 200, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba_chunk_matches_plain(shape, dtype):
+    """B10 and B11 against their plain versions on the card: f32 at 1e-4,
+    bf16 inputs at 2e-2 (the gradients in bf16); the backward repeats bit
+    for bit (no atomics)."""
+    gen = _on_card()
+    *ins, dy, dhl = _mamba_card(gen, *shape, dtype=dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    MS.reset_launches()
+    for a, b in zip(MS.mamba_chunk(*ins), tref.mamba_chunk_ref(*ins)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    got = MS.mamba_chunk_backward(*ins, dy, dhl)
+    want = tref.mamba_chunk_backward_ref(*ins, dy, dhl)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    again = MS.mamba_chunk_backward(*ins, dy, dhl)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert MS.launches == {"mamba_chunk": 1, "mamba_chunk_backward": 2}
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_padding_is_exact_and_chunks_chain():
+    """dt = 0 steps leave the state bit for bit (a left-padded row equals
+    its unpadded run); two chained chunks equal one scan; the autograd
+    Function's gradients equal plain autograd through the plain forward."""
+    gen = _on_card()
+    xc, dt, Bm, Cm, A, h0, dy, dhl = _mamba_card(gen, 2, 64, 256, 16)
+    dt[:, :23] = 0
+    y, h = MS.mamba_chunk(xc, dt, Bm, Cm, A, h0)
+    ys, hs = MS.mamba_chunk(*(t[:, 23:].contiguous() for t in
+                              (xc, dt, Bm, Cm)), A, h0)
+    assert torch.equal(h, hs) and torch.equal(y[:, 23:], ys)
+    y1, h1 = MS.mamba_chunk(*(t[:, :40].contiguous() for t in
+                              (xc, dt, Bm, Cm)), A, h0)
+    y2, h2 = MS.mamba_chunk(*(t[:, 40:].contiguous() for t in
+                              (xc, dt, Bm, Cm)), A, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(h2, h, rtol=1e-4, atol=1e-4)
+    from repro_torch.kernels import ops as tops
+    ins = (xc, dt, Bm, Cm, A, h0)
+    grads = []
+    for fn in (tops.mamba_chunk, tref.mamba_chunk_ref):
+        leaves = [t.detach().requires_grad_(True) for t in ins]
+        yy, hh = fn(*leaves)
+        grads.append(torch.autograd.grad((yy * dy).sum() + (hh * dhl).sum(),
+                                         leaves))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_wrappers_reject_what_the_kernels_do_not_take():
+    gen = _on_card()
+    xc, dt, Bm, Cm, A, h0, dy, dhl = _mamba_card(gen, 2, 8, 64, 8)
+    with pytest.raises(TypeError):
+        MS.mamba_chunk(xc, dt.bfloat16(), Bm, Cm, A, h0)
+    with pytest.raises(TypeError):
+        MS.mamba_chunk(xc, dt, Bm, Cm, A, h0.bfloat16())
+    with pytest.raises(ValueError):
+        MS.mamba_chunk(xc, dt, Bm, Cm, A, h0.transpose(1, 2))
+    with pytest.raises(TypeError):
+        MS.mamba_chunk_backward(xc, dt, Bm, Cm, A, h0, dy.bfloat16(), dhl)
+    big = torch.zeros(2, 8, 17, device="cuda")
+    with pytest.raises(ValueError, match="d_state"):
+        MS.mamba_chunk(xc, dt, big, big, torch.zeros(64, 17, device="cuda"),
+                       torch.zeros(2, 64, 17, device="cuda"))
+    long = MS.MAX_BWD_CHUNK + 1
+    x2 = torch.zeros(1, long, 8, device="cuda")
+    b2 = torch.zeros(1, long, 4, device="cuda")
+    with pytest.raises(ValueError, match="chunk"):
+        MS.mamba_chunk_backward(x2, x2, b2, b2,
+                                torch.zeros(8, 4, device="cuda"),
+                                torch.zeros(1, 8, 4, device="cuda"), x2,
+                                torch.zeros(1, 8, 4, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_cuda_falcon_mamba_matches_cpu():
+    """Reduced falcon-mamba in f32, the same parameters on both devices:
+    greedy ragged tokens equal with one B10 launch a layer (none in
+    decode), and one train step's loss (1e-5) and parameters (1e-4)."""
+    _on_card()
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import sgd
+    from repro_torch.serving import generate
+    from repro_torch.train.trainer import make_lm_train_step
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b-reduced"),
+                              dtype="float32")
+    p_cpu = TT.init_params(0, cfg, device="cpu")
+    p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (3, 20))
+    lens = (20, 9, 4)
+    MS.reset_launches()
+    out_gpu = generate(p_gpu, cfg, prompts, max_new_tokens=6,
+                       prompt_lens=lens)
+    out_cpu = generate(p_cpu, cfg, prompts, max_new_tokens=6,
+                       prompt_lens=lens, device="cpu")
+    assert torch.equal(out_gpu.cpu(), out_cpu)
+    assert MS.launches == {"mamba_chunk": cfg.n_layers,
+                           "mamba_chunk_backward": 0}
+    lb = LargeBatchConfig(batch_size=2, base_batch_size=2, grad_clip=1.0)
+    reg = Regime(base_lr=0.01, total_steps=4, drop_every=4)
+    tokens = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 48))
     outs = {}
     for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
         step = make_lm_train_step(cfg, lb, reg, use_kernels=dev == "cuda")
