@@ -22,8 +22,11 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    flash_decode) against its plain version on the card: at the full-width
    qwen3-1.7b shapes of phase 7 in bf16 (BF16_TOL) and at small f32
    shapes (TOL), ring/window decode included, the norm also with no
-   residual; device times of kernel, plain version and one library call,
-   and the bound, at phase 7's shapes;
+   residual; flash_attention's bf16 tensor-core body also at the edge
+   shapes FLASH_EDGES (T 17/100/130, kv_offsets (0, 37), (0, 7, 129) and
+   (64, 0), windows, non-causal, GQA 2:1 to 8:1, hd 32 to 256; o at
+   BF16_TOL, lse at TOL); device times of kernel, plain version and one
+   library call, and the bound, at phase 7's shapes;
 7. full-width qwen3-1.7b ``generate`` in bf16 (random weights from
    SERVE_SEED): B=8 left-padded prompts of width 512 (PROMPT_LENS),
    greedy, 32 new tokens. The launch counters must show 28
@@ -67,18 +70,23 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    version on the card: at the full-width qwen3-1.7b shapes of phase 13
    in bf16 (BF16_TOL) and at small f32 shapes (the reference tests'
    tolerances), with ragged T, a window, GQA and the norm without a
-   residual; each autograd Function's gradients against plain autograd
-   through the plain forward; device times of kernel, plain version and
-   one library call (CUDA events), and the bound;
+   residual; the bf16 tensor-core bodies of B7 and B8 also at FLASH_EDGES
+   (the backward to hd 128); the RoPE backward (one launch on the
+   unrotated q, k) against the composite plain version in bf16 and f32;
+   two B8 calls on the same inputs give equal bits; each autograd
+   Function's gradients against plain autograd through the plain forward;
+   device times of kernel, plain version and one library call (CUDA
+   events), and the bound;
 13. full-width qwen3-1.7b training in bf16 (random weights from
    SERVE_SEED, f32 momentum): make_lm_train_step(use_kernels=True) on B=8
    rows of T=512 from token_lm, one warm and five timed steps on the same
    batch. The launch counters of a step must show 57 rmsnorm_residual and
    57 rmsnorm_residual_backward, 28 of each of swiglu, swiglu_backward,
    flash_attention_rope and flash_attention_backward, and no
-   flash_attention or decode launch; the loss must be finite and fall; a
-   remat=True step from the same state must give the same loss and
-   parameters within BF16_TOL. Step ms, tokens/s, peak memory, and one
+   flash_attention or decode launch, and no plain-torch RoPE rotation
+   (``ref.rope_rotate_hm``) in the timed steps; the loss must be finite
+   and fall; a remat=True step from the same state must give the same
+   loss and parameters within BF16_TOL. Step ms, tokens/s, peak memory, and one
    profiled step by kernel family, whose kernel counts must match the
    counters;
 14. reduced qwen3 in f32: one train step on the card (kernels) against
@@ -128,6 +136,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -232,9 +241,31 @@ def phase_build():
     log(f"build: {build.SOURCES} with nvcc {' '.join(build.NVCC_FLAGS)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build.build_logs.items():
+        entry = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_label(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {src} {entry}: {line.strip()}")
+
+
+def kernel_label(line: str) -> str:
+    """'name<args>' of a kernel from ptxas's 'Compiling entry function'
+    line (its mangled name: <file hash><length><name>I<args>E...)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", line)
+    if not m:
+        return line.split("'")[1][:60] if "'" in line else "?"
+    start = m.end()
+    name = line[start:start + int(m.group(1))]
+    rest = line[start + int(m.group(1)):]
+    args = []
+    if rest.startswith("I"):
+        if rest.startswith("If"):
+            args.append("float")
+        elif rest.startswith("I13__nv_bfloat16"):
+            args.append("bf16")
+        args += re.findall(r"L[a-z](\d+)E", rest.split("EEv")[0])
+    return f"{name}<{','.join(args)}>"
 
 
 def gbn_inputs(shape, seed):
@@ -508,6 +539,20 @@ SERVE_KERNELS = {
 }
 
 
+# Edge shapes of the flash attention kernels, run in bf16 (the tensor-core
+# bodies) and held to BF16_TOL: (B, H, KV, T, hd), causal, window,
+# kv_offsets (phase 6 only; the RoPE forward and the backward take none).
+# T not a multiple of 64, offsets not a multiple of 64, a window,
+# non-causal, GQA 2:1, 4:1 and 8:1, hd 32 to 256 (the backward to 128).
+FLASH_EDGES = [((1, 2, 2, 17, 32), True, None, None),
+               ((2, 4, 2, 100, 64), True, 13, (0, 37)),
+               ((3, 4, 2, 130, 128), True, None, (0, 7, 129)),
+               ((1, 8, 1, 128, 64), False, None, None),
+               ((1, 8, 2, 100, 64), True, None, None),
+               ((2, 16, 8, 130, 128), True, None, None),
+               ((2, 2, 1, 70, 256), True, 9, (64, 0))]
+
+
 def profile_device_ms(fn, reps: int = 10, warm: bool = True,
                       host: bool = True):
     """Device time per call of everything ``fn`` launches (torch.profiler,
@@ -708,6 +753,24 @@ def phase_serving_kernels():
     record("flash_attention", "(2, 4, 2, 100, 100, 64) f32 ragged window 13",
            FA.flash_attention_fwd(qs, ks_, vs_, window=13, kv_offsets=o2),
            ref.attention_ref(qs, ks_, vs_, window=13, kv_offsets=o2), TOL)
+    for (b_, h_, kv_, t_, hd_), causal, window, offs in FLASH_EDGES:
+        qe = randn(b_, h_, t_, hd_)
+        ke, ve = randn(b_, kv_, t_, hd_), randn(b_, kv_, t_, hd_)
+        oe = None if offs is None else torch.tensor(offs, device="cuda",
+                                                    dtype=torch.int32)
+        go, gl = FA.flash_attention_fwd(qe, ke, ve, causal=causal,
+                                        window=window, kv_offsets=oe,
+                                        return_lse=True)
+        wo, wl = ref.attention_ref(qe, ke, ve, causal=causal, window=window,
+                                   kv_offsets=oe, return_lse=True)
+        label = (f"({b_}, {h_}, {kv_}, {t_}, {hd_}) bf16 causal {causal} "
+                 f"window {window} offsets {offs}")
+        record("flash_attention", label + " o", go, wo, BF16_TOL)
+        # lse from f32 logits of the same bf16 inputs: -inf rows agree
+        fin = wl.isfinite()
+        if not torch.equal(fin, gl.isfinite()):
+            raise AssertionError(f"flash_attention {label}: -inf rows differ")
+        record("flash_attention", label + " lse", gl[fin], wl[fin], TOL)
     del q, k, v, mask
 
     # flash_decode -------------------------------------------------------------
@@ -1651,7 +1714,7 @@ TRAIN_KERNELS = {
     # name: (source, TPU kernel it replaces, tolerance of its small f32
     # check (the reference tests' own: tests/test_fused_kernels.py,
     # tests/test_kernels.py), profiler family of its kernels, kernels one
-    # wrapper call launches)
+    # bf16 wrapper call launches)
     "rmsnorm_residual_backward": ("rmsnorm_residual.cu",
                                   "src/repro/kernels/fused_norm.py:105",
                                   1e-5, "rmsnorm_residual_bwd", 2),
@@ -1659,7 +1722,7 @@ TRAIN_KERNELS = {
                         1e-4, "swiglu_bwd", 2),
     "flash_attention_rope": ("flash_attention.cu",
                              "src/repro/kernels/flash_attention.py:278",
-                             2e-5, "flash_fwd", 1),
+                             2e-5, "flash_fwd", 2),
     "flash_attention_backward": ("flash_attention_bwd.cu",
                                  "src/repro/kernels/flash_attention.py:509",
                                  5e-4, "flash_bwd", 3),
@@ -1837,6 +1900,13 @@ def phase_train_kernels():
           lambda: F.scaled_dot_product_attention(qr, kr, v, is_causal=True,
                                                  enable_gqa=True),
           attn_rope_work(B, H, KV, T, hd))
+    # beside it, the attention kernel alone on pre-rotated q, k (B9's body)
+    timed(name, (T, "no RoPE"),
+          lambda: FA.flash_attention_fwd(qr, kr, v, return_lse=True),
+          lambda: ref.attention_ref(qr, kr, v, return_lse=True),
+          lambda: F.scaled_dot_product_attention(qr, kr, v, is_causal=True,
+                                                 enable_gqa=True),
+          attn_rope_work(B, H, KV, T, hd))
     for (b_, h_, kv_, t_, hd_), window in (((2, 4, 2, 100, 64), 13),
                                            ((1, 2, 2, 17, 32), None),
                                            ((1, 8, 2, 130, 128), None)):
@@ -1851,6 +1921,22 @@ def phase_train_kernels():
         label = f"({b_}, {h_}, {kv_}, {t_}, {hd_}) f32 window {window}"
         record(name, label + " o", go, wo, TRAIN_KERNELS[name][2])
         record(name, label + " lse", gl, wl, TRAIN_KERNELS[name][2])
+    for (b_, h_, kv_, t_, hd_), causal, window, _ in FLASH_EDGES:
+        qe = randn(b_, h_, t_, hd_)
+        ke, ve = randn(b_, kv_, t_, hd_), randn(b_, kv_, t_, hd_)
+        pe = positions(b_, t_)
+        go, gl = FA.flash_attention_rope_fwd(qe, ke, ve, pe, theta=1e4,
+                                             causal=causal, window=window,
+                                             return_lse=True)
+        wo, wl = ref.attention_rope_ref(qe, ke, ve, pe, theta=1e4,
+                                        causal=causal, window=window,
+                                        return_lse=True)
+        label = (f"({b_}, {h_}, {kv_}, {t_}, {hd_}) bf16 causal {causal} "
+                 f"window {window}")
+        record(name, label + " o", go, wo, BF16_TOL)
+        # the kernel rounds the rotated q and k to bf16, the plain version
+        # keeps them in f32: lse within BF16_TOL
+        record(name, label + " lse", gl, wl, BF16_TOL)
 
     # B8: flash attention backward ---------------------------------------------
     name = "flash_attention_backward"
@@ -1863,17 +1949,86 @@ def phase_train_kernels():
     for lab, a, b in zip(("dq", "dk", "dv"), got, want):
         record(name, f"B={B} H={H} KV={KV} T={T} hd={hd} causal bf16 {lab}",
                a, b, BF16_TOL)
-    del got, want
+    again = FA.flash_attention_backward(qr, kr, v, o, lse, do)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    log("  two calls on the same inputs: equal bits")
+    del got, want, again
+
+    def rope_bwd_plain(q_, k_, v_, p_, o_, l_, do_, theta_, **kw):
+        # the composite plain version: rotate, plain backward, rotate back
+        dq_, dk_, dv_ = ref.attention_backward_ref(
+            ref.rope_rotate_hm(q_, p_, theta_),
+            ref.rope_rotate_hm(k_, p_, theta_), v_, o_, l_, do_, **kw)
+        return (ref.rope_rotate_hm(dq_, -p_, theta_),
+                ref.rope_rotate_hm(dk_, -p_, theta_), dv_)
+
+    # the RoPE backward the train step runs: one launch on unrotated q, k
+    o, lse = FA.flash_attention_rope_fwd(q, k, v, pos, theta=theta,
+                                         return_lse=True)
+    got = FA.flash_attention_rope_backward(q, k, v, pos, o, lse, do,
+                                           theta=theta)
+    want = rope_bwd_plain(q, k, v, pos, o, lse, do, theta)
+    for lab, a, b in zip(("dq", "dk", "dv"), got, want):
+        record(name, f"B={B} H={H} KV={KV} T={T} hd={hd} causal bf16 RoPE "
+               f"{lab}", a, b, BF16_TOL)
+    again = FA.flash_attention_rope_backward(q, k, v, pos, o, lse, do,
+                                             theta=theta)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two RoPE calls differ")
+    log("  two RoPE calls on the same inputs: equal bits")
+    del got, want, again
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (qr, kr, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                         enable_gqa=True)
     timed(name, T,
+          lambda: FA.flash_attention_rope_backward(q, k, v, pos, o, lse, do,
+                                                   theta=theta),
+          lambda: rope_bwd_plain(q, k, v, pos, o, lse, do, theta),
+          lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                      retain_graph=True),
+          attn_bwd_work(B, H, KV, T, hd))
+    # beside it, the RoPE-free kernel (flash_attention_hm's backward)
+    timed(name, (T, "no RoPE"),
           lambda: FA.flash_attention_backward(qr, kr, v, o, lse, do),
           lambda: ref.attention_backward_ref(qr, kr, v, o, lse, do),
           lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
                                       retain_graph=True),
           attn_bwd_work(B, H, KV, T, hd))
     del ql, kl, vl, ol, q, k, v, qr, kr, o, lse, do
+    for (b_, h_, kv_, t_, hd_), causal, window, _ in FLASH_EDGES:
+        if hd_ not in FA.BWD_HEAD_DIMS:
+            continue
+        qe, doe = randn(b_, h_, t_, hd_), randn(b_, h_, t_, hd_)
+        ke, ve = randn(b_, kv_, t_, hd_), randn(b_, kv_, t_, hd_)
+        pe = positions(b_, t_)
+        label = (f"({b_}, {h_}, {kv_}, {t_}, {hd_}) causal {causal} window "
+                 f"{window}")
+        oe, le = ref.attention_ref(qe, ke, ve, causal=causal, window=window,
+                                   return_lse=True)
+        got = FA.flash_attention_backward(qe, ke, ve, oe, le, doe,
+                                          causal=causal, window=window)
+        want = ref.attention_backward_ref(qe, ke, ve, oe, le, doe,
+                                          causal=causal, window=window)
+        for lab, a, b in zip(("dq", "dk", "dv"), got, want):
+            record(name, f"{label} bf16 {lab}", a, b, BF16_TOL)
+        again = FA.flash_attention_backward(qe, ke, ve, oe, le, doe,
+                                            causal=causal, window=window)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} {label}: two calls differ")
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, tol32)):
+            qd, kd, vd, dod = (t.to(dt) for t in (qe, ke, ve, doe))
+            od, ld = ref.attention_rope_ref(qd, kd, vd, pe, theta=1e4,
+                                            causal=causal, window=window,
+                                            return_lse=True)
+            for lab, a, b in zip(
+                    ("dq", "dk", "dv"),
+                    FA.flash_attention_rope_backward(
+                        qd, kd, vd, pe, od, ld, dod, theta=1e4,
+                        causal=causal, window=window),
+                    rope_bwd_plain(qd, kd, vd, pe, od, ld, dod, 1e4,
+                                   causal=causal, window=window)):
+                record(name, f"{label} RoPE {str(dt)[6:]} {lab}", a, b, tol)
     for (b_, h_, kv_, t_, hd_), causal, window in (
             ((2, 4, 2, 100, 64), True, 13), ((1, 8, 1, 128, 64), False, None),
             ((1, 2, 2, 17, 32), True, None), ((1, 4, 2, 130, 128), True,
@@ -1960,6 +2115,7 @@ def phase_lm_train():
     from repro_torch.configs import get_config
     from repro_torch.core import LargeBatchConfig, Regime
     from repro_torch.data import lm_sequences, token_lm
+    from repro_torch.kernels import ref
     from repro_torch.optim import sgd
     from repro_torch.train.trainer import make_lm_train_step
     cfg = get_config(SERVE_ARCH)
@@ -1980,21 +2136,34 @@ def phase_lm_train():
             "flash_attention_backward": L, "flash_attention": 0,
             "flash_decode": 0, "flash_decode_paged": 0}
     losses, times, launches = [], [], None
-    for i in range(1 + TRAIN_STEPS):
-        if i == 1:      # only this step's input state is held here
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            reset_serving_launches()
-        if i == TRAIN_STEPS:
-            prev = state        # the last step's input, for the remat step
-        t0 = time.perf_counter()
-        p2, o2, m = step_fn(*state, batch, i)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if i == 1:
-            launches = serving_launches()
-        losses.append(m["loss"])
-        state = (p2, o2)
+    # plain-torch RoPE rotations during the timed steps: the RoPE backward
+    # is one kernel launch, so none may run
+    rotations = []
+    plain_rotate = ref.rope_rotate_hm
+
+    def counted_rotate(*args, **kwargs):
+        rotations.append(1)
+        return plain_rotate(*args, **kwargs)
+
+    try:
+        for i in range(1 + TRAIN_STEPS):
+            if i == 1:      # only this step's input state is held here
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                reset_serving_launches()
+                ref.rope_rotate_hm = counted_rotate
+            if i == TRAIN_STEPS:
+                prev = state    # the last step's input, for the remat step
+            t0 = time.perf_counter()
+            p2, o2, m = step_fn(*state, batch, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                launches = serving_launches()
+            losses.append(m["loss"])
+            state = (p2, o2)
+    finally:
+        ref.rope_rotate_hm = plain_rotate
     peak_bytes = torch.cuda.max_memory_allocated()
     peak, step_peak = peak_bytes / 2 ** 30, (peak_bytes - base) / 2 ** 30
     losses = torch.stack(losses).tolist()
@@ -2008,6 +2177,10 @@ def phase_lm_train():
         f"a step {launches}")
     if launches != want:
         raise AssertionError(f"train launches {launches}, want {want}")
+    log(f"  plain-torch RoPE rotations (ref.rope_rotate_hm) in the "
+        f"{TRAIN_STEPS} timed steps: {len(rotations)}")
+    if rotations:
+        raise AssertionError(f"{len(rotations)} plain RoPE rotations ran")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")

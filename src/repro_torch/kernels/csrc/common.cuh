@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels: element types, conversions to
-// and from f32, 16-byte vector loads and stores, a block-wide sum and the
-// RoPE rotation.
+// and from f32, 16-byte vector loads and stores, a block-wide sum, the RoPE
+// rotation, and the sm_80+ tensor-core building blocks the bf16 flash
+// attention kernels use (cp.async, ldmatrix, mma.sync m16n8k16).
 //
 // Every kernel takes f32 or bf16 tensors (a dtype code from the wrapper:
 // 0 = float32, 1 = bfloat16) and computes in f32. bf16 values are rounded
@@ -10,6 +11,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace port {
 
@@ -75,20 +77,195 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return warp_sum(v);
 }
 
-// Half-split RoPE of one pair (x1 = element j, x2 = element j + half of a
-// row) at position pos, with freq_j = exp(-(j / half) * log(theta)): the
-// rotation of repro.kernels.flash_attention._rope_rotate. The decode kernels
-// (the query row) and the flash attention forward (its q and k tiles) all
-// rotate through this one function, so they cannot drift apart.
+// Frequency of pair j of a half-split RoPE row: exp(-(j / half) * log_theta).
+__device__ __forceinline__ float rope_freq(int j, int half, float log_theta) {
+  return expf(-(static_cast<float>(j) / static_cast<float>(half)) *
+              log_theta);
+}
+
+// Rotates one pair (x1 = element j, x2 = element j + half of a row) by the
+// angle pos * freq. Every product and sum is spelled out (no contraction
+// left to the compiler), so every kernel that rotates the same value gets
+// the same bits: the flash backward re-rotates q and k exactly as the
+// forward did, and its recomputed probabilities match the forward's lse.
+__device__ __forceinline__ void rope_rotate(float& x1, float& x2, float pos,
+                                            float freq) {
+  float sn, cs;
+  sincosf(__fmul_rn(pos, freq), &sn, &cs);
+  const float a = x1, b = x2;
+  x1 = __fmaf_rn(a, cs, -__fmul_rn(b, sn));
+  x2 = __fmaf_rn(a, sn, __fmul_rn(b, cs));
+}
+
+// Half-split RoPE of one pair at position pos with freq_j = rope_freq(j):
+// the rotation of repro.kernels.flash_attention._rope_rotate. The decode
+// kernels (the query row) and the flash attention kernels (their q and k
+// tiles, and dq, dk rotated back by -pos) all rotate through rope_rotate,
+// so they cannot drift apart.
 __device__ __forceinline__ void rope_pair(float& x1, float& x2, float pos,
                                           int j, int half, float log_theta) {
-  const float ang = pos * expf(-(static_cast<float>(j) /
-                                 static_cast<float>(half)) * log_theta);
-  float sn, cs;
-  sincosf(ang, &sn, &cs);
-  const float a = x1, b = x2;
-  x1 = a * cs - b * sn;
-  x2 = a * sn + b * cs;
+  rope_rotate(x1, x2, pos, rope_freq(j, half, log_theta));
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core building blocks (sm_80 and later; the bf16 flash attention
+// kernels). Fragment layouts are those of the PTX ISA for
+// mma.m16n8k16 with .bf16 inputs: lane = 4 * group + t (group = lane / 4,
+// t = lane % 4);
+//   A (16 x 16, row-major): a0 = (group, 2t..2t+1), a1 = (group + 8, 2t..),
+//     a2 = (group, 2t + 8..), a3 = (group + 8, 2t + 8..);
+//   B (16 x 8, k x n): b0 = (2t..2t+1, group), b1 = (2t + 8.., group);
+//   C (16 x 8, f32): c0, c1 = (group, 2t..2t+1), c2, c3 = (group + 8, ..).
+// A C tile's pair (c0, c1) or (c2, c3), packed to bf16, is the A fragment
+// of the next product whose k runs over those columns.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; `valid` false writes zeros
+// (src must still be a mapped address; it is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously (any 4-byte aligned address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and receives in r[i] its fragment of matrix i
+// (row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1; with .trans the matrix
+// is transposed first).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Two matrices: lanes 0-15 give the addresses (the others' are ignored).
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// d += a * b on the tensor cores: bf16 inputs, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (to nearest even) in one register, `lo` in the
+// low half: the element with the smaller column index of a fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 64-row bf16 tiles of the flash attention kernels: rows of HD elements at
+// a shared-memory row stride of HD + 8 (16 bytes of padding, so the eight
+// rows one ldmatrix phase reads fall into distinct banks).
+template <int HD>
+struct Tile {
+  static constexpr int LD = HD + 8;          // row stride, elements
+  static constexpr int ELEMS = 64 * LD;
+  static constexpr size_t BYTES = sizeof(__nv_bfloat16) * ELEMS;
+};
+
+// Rows [r0, r0 + 64) of a row-major (n, HD) bf16 matrix into a shared tile,
+// as 16-byte cp.async copies issued by the NTHREADS threads of the block
+// (the caller commits the group); rows at or past n are zeros.
+template <int HD, int NTHREADS>
+__device__ __forceinline__ void tile_load_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int r0, int n) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < 64 * CPR; c += NTHREADS) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int row = r0 + r;
+    const bool ok = row < n;
+    cp_async16(dst + r * Tile<HD>::LD + col,
+               src + static_cast<size_t>(ok ? row : 0) * HD + col, ok);
+  }
+}
+
+// RoPE of head-major q (B, H, T, HD) and k (B, KV, T, HD) by the positions
+// pos (B, T) into qr and kr, for thread i of a 1-D grid of
+// B * (H + KV) * T * HD / (2 N) threads: each rotates N = Vec16<T>::N pairs
+// (columns c..c+N-1 and c+HD/2..c+HD/2+N-1) of one row, rows of q first,
+// then rows of k. Each value is widened to f32, rotated and stored in T
+// once, so every kernel that rotates through here gets the same operands.
+template <typename T, int HD>
+__device__ __forceinline__ void rope_qk(size_t i, const T* __restrict__ q,
+                                        const T* __restrict__ k,
+                                        T* __restrict__ qr,
+                                        T* __restrict__ kr,
+                                        const float* __restrict__ pos, int B,
+                                        int H, int KV, int T_,
+                                        float log_theta) {
+  constexpr int N = Vec16<T>::N, HALF = HD / 2, CPR = HALF / N;
+  const size_t q_rows = static_cast<size_t>(B) * H * T_;
+  const size_t rows = q_rows + static_cast<size_t>(B) * KV * T_;
+  if (i >= rows * CPR) return;
+  size_t row = i / CPR;
+  const int c = static_cast<int>(i % CPR) * N;
+  const T* src = q;
+  T* dst = qr;
+  int nh = H;
+  if (row >= q_rows) {
+    row -= q_rows;
+    src = k;
+    dst = kr;
+    nh = KV;
+  }
+  const int t = static_cast<int>(row % T_);
+  const size_t b = row / (static_cast<size_t>(nh) * T_);
+  const float p = pos[b * T_ + t];
+  float x1[N], x2[N];
+  load16(src + row * HD + c, x1);
+  load16(src + row * HD + c + HALF, x2);
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    rope_rotate(x1[e], x2[e], p, rope_freq(c + e, HALF, log_theta));
+  store16(dst + row * HD + c, x1);
+  store16(dst + row * HD + c + HALF, x2);
 }
 
 }  // namespace port

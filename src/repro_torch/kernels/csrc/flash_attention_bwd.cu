@@ -3,39 +3,79 @@
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/flash_attention.py:
 //   flash_attention_backward_pallas (_recompute_p_ds, _flash_bwd_dq_kernel,
-//   _flash_bwd_dkv_kernel; the split path)
+//   _flash_bwd_dkv_kernel; the split path), and with its RoPE flag the
+//   RoPE wrapper flash_attention_rope_backward (:629)
 //
 // q, o, do: (B, H, T, HD); k, v: (B, KV, S, HD), head-major, f32 or bf16;
 // lse: (B, H, T) f32, the forward's row logsumexp. Head h reads kv head
 // h / (H / KV). Key s is visible to query t iff s < S, s <= t (causal) and
 // s > t - window (window > 0), the mask of flash_attention.cu. With
-// scale = 1/sqrt(HD), everything in f32:
+// scale = 1/sqrt(HD), everything accumulated in f32:
 //
-//   delta = rowsum(do * o)                          (flash_bwd_delta_kernel)
+//   delta = rowsum(do * o)
 //   p  = exp(q k^T * scale - lse)    (0 where not visible)
 //   ds = p * (do v^T - delta)
-//   dv = p^T do,  dk = ds^T q * scale               (flash_bwd_dkv_kernel)
-//   dq = ds k * scale                               (flash_bwd_dq_kernel)
+//   dv = p^T do,  dk = ds^T q * scale,  dq = ds k * scale
 //
 // dq, dk, dv are written in the input dtype. Nothing (T, S)-sized is ever
 // stored: each kernel rebuilds its p and ds tiles from q, k, v, do, lse and
-// delta. For RoPE attention the wrapper rotates q and k before and dq, dk
-// back after (flash_attention_rope_backward).
+// delta. With positions pos (B, T) (RoPE attention, S == T) q and k are the
+// UNROTATED inputs: flash_bwd_rope_kernel rotates them once into scratch
+// through port::rope_qk, the forward's rotation (the same operands bit for
+// bit), the bodies run on the rotated operands, and each rotates its dq or
+// dk back by -pos in its epilogue: the RoPE backward is one call with no
+// plain-torch pass.
 //
-// What bounds it: at the training shapes (B = 8, H = 16, KV = 8, T = S =
-// 512, HD = 128, causal) the five products over the visible pairs are
-// about 22 GFLOP for about 100 MB of inputs and outputs in bf16:
-// arithmetic at the tensor-core rate; these f32 FMA tiles are far from it.
+// Deterministic, with no atomics: dq is owned by one block per (q block,
+// head), and dk, dv by one block per (key block, kv head) that sums its
+// GQA group's heads in a fixed order. Two calls give the same bits, so a
+// remat step equals the plain one.
 //
-// Design (a first, simple kernel, deterministic: no atomics):
+// What bounds it: at the qwen3-1.7b shapes (B = 8, H = 16, KV = 8, T = S =
+// 512, HD = 128, causal) a call moves 100 MB of inputs and outputs in bf16
+// (30 us at 3.35 TB/s) and the five products of the algorithm are 22
+// GFLOP (22 us at the bf16 tensor-core peak): bytes and products nearly
+// balance. These kernels compute seven products (s and dp twice, once for
+// dq and once for dk, dv).
+//
+// The dtype chooses the bodies (the C entry point dispatches on it;
+// neither is a fallback of the other):
+//
+// bf16 -- two kernels on mma.sync m16n8k16 (bf16 in, f32 accumulators),
+// ldmatrix, and 16-byte cp.async double buffers; tile rows padded by 8
+// bf16 for conflict-free ldmatrix:
+// - flash_bwd_dq_bf16_kernel, first: one block of 4 warps per (q block of
+//   64, head, batch row), the longest (last) q blocks first. q and do stay
+//   in shared memory; k and v tiles of 64 stream through two stages. Each
+//   warp computes s and dp for its 16 rows x 64 keys, p and ds in
+//   registers, and dq += ds k with ds as the A operand straight from the
+//   accumulators (k through ldmatrix.trans). It also computes delta for its
+//   64 rows from o and do and writes it for the second kernel. dq is
+//   staged in f32 through the q and do tiles and rotated back there, after
+//   the accumulators are dead. Shared memory 104,704 bytes at HD = 128 (2
+//   blocks an SM); 169 registers (238 with RoPE, still 2 blocks an SM), no
+//   spills.
+// - flash_bwd_dkv_bf16_kernel: one block of 8 warps per (key block of 64,
+//   kv head, batch row), all key blocks 0 (under causal the longest) first.
+//   k and v stay in shared memory; (q, do, lse, delta) tiles of the group's
+//   heads and visible q blocks stream through two stages. Warp (g, c)
+//   computes s^T = k q^T and dp^T = v do^T for keys 16g..16g+15 and queries
+//   32c..32c+31, then p^T and ds^T, which go to shared memory in bf16; then
+//   dv += p^T do and dk += ds^T q for its 16 keys and the n tiles
+//   {half * HD/16 + c * HD/32 + j}, so that column j and j + HD/2 (a RoPE
+//   pair) stay in one thread. 123,904 bytes at HD = 128 (1 block an SM);
+//   165 registers (166 with RoPE), no spills.
+// HD = 256 is not taken: its dk and dv accumulators would not fit in the
+// registers without spills.
+//
+// f32 -- three kernels, FMA in f32 (tensor cores take f32 only as TF32):
+// - flash_bwd_delta_kernel: one warp a row;
 // - flash_bwd_dkv_kernel: one block of 256 threads per (key block of 64,
-//   kv head, batch row). It keeps its k and v tiles in shared memory and
-//   walks every q head of its GQA group and every q block of 64 that sees
-//   the key block, accumulating dk and dv in registers, so the group's sum
-//   is formed in one fixed order and dk, dv are written once in (B, KV, S,
-//   HD). Four threads own one key row: each scores 16 of the 64 query rows
-//   (q.k and do.v), and the row's p and ds are exchanged by warp shuffles
-//   for the HD/4 output columns each thread accumulates.
+//   kv head, batch row), k and v tiles in shared memory, walking every q
+//   head of its GQA group and every q block that sees the key block. Four
+//   threads own one key row: each scores 16 of the 64 query rows (q.k and
+//   do.v), and the row's p and ds are exchanged by warp shuffles for the
+//   HD/4 output columns each thread accumulates.
 // - flash_bwd_dq_kernel: one block per (q block of 64, head, batch row)
 //   walks the key blocks of its band, as the forward does, recomputing p
 //   and ds; four threads own one query row.
@@ -104,13 +144,14 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int T_,
-               int S, int causal, int window, float scale) {
+               T* __restrict__ dk, T* __restrict__ dv,
+               const float* __restrict__ pos, int H, int KV, int T_, int S,
+               int causal, int window, float scale, float log_theta) {
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 4;  // output columns per thread
   constexpr int JPT = BQ / 4;  // query rows scored per thread per q block
@@ -133,6 +174,7 @@ __global__ void __launch_bounds__(THREADS)
   const size_t kv_base = (static_cast<size_t>(b) * KV + kvh) * S;
   load_tile<T, HD>(ks, k, kv_base, k_start, S);
   load_tile<T, HD>(vs, v, kv_base, k_start, S);
+  const float* posb = ROPE ? pos + static_cast<size_t>(b) * T_ : nullptr;
 
   // the queries any key of this block is visible to
   const int k_last = min(k_start + BK, S) - 1;
@@ -210,22 +252,31 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   if (s < S) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) acc_k[i] *= scale;
+    if constexpr (ROPE) {  // back to the unrotated k: rotate by -pos
+#pragma unroll
+      for (int i = 0; i < CPT / 2; ++i)
+        port::rope_pair(acc_k[i], acc_k[i + CPT / 2], -posb[s], qtr + 4 * i,
+                        HD / 2, log_theta);
+    }
     const size_t at = (kv_base + s) * HD + qtr;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
-      dk[at + 4 * i] = from_f<T>(acc_k[i] * scale);
+      dk[at + 4 * i] = from_f<T>(acc_k[i]);
       dv[at + 4 * i] = from_f<T>(acc_v[i]);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool ROPE>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int H, int KV, int T_, int S, int causal,
-              int window, float scale) {
+              T* __restrict__ dq, const float* __restrict__ pos, int H,
+              int KV, int T_, int S, int causal, int window, float scale,
+              float log_theta) {
   constexpr int QS = HD + 1;
   constexpr int CPT = HD / 4;
   constexpr int JPT = BK / 4;  // keys scored per thread per key block
@@ -254,6 +305,7 @@ __global__ void __launch_bounds__(THREADS)
     lses[tid] = t < T_ ? lse[q_base + t] : 0.f;
     dls[tid] = t < T_ ? delta[q_base + t] : 0.f;
   }
+  const float* posb = ROPE ? pos + static_cast<size_t>(b) * T_ : nullptr;
 
   // the band of keys any row of this block can see
   const int q_last = min(q_start + BQ, T_) - 1;
@@ -316,17 +368,540 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   if (t < T_) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) acc[i] *= scale;
+    if constexpr (ROPE) {  // back to the unrotated q: rotate by -pos
+#pragma unroll
+      for (int i = 0; i < CPT / 2; ++i)
+        port::rope_pair(acc[i], acc[i + CPT / 2], -posb[t], qtr + 4 * i,
+                        HD / 2, log_theta);
+    }
     const size_t at = (q_base + t) * HD + qtr;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) dq[at + 4 * i] = from_f<T>(acc[i] * scale);
+    for (int i = 0; i < CPT; ++i) dq[at + 4 * i] = from_f<T>(acc[i]);
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core bodies
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int DQ_THREADS = 128;   // 4 warps, 16 query rows each
+constexpr int DKV_THREADS = 256;  // 8 warps: 4 groups of 16 keys, x 2
+constexpr int PLD = BQ + 8;       // row stride of the p^T and ds^T tiles
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+constexpr size_t dq_smem_bytes() {  // q, do, k[2], v[2], delta
+  return 6 * port::Tile<HD>::BYTES + sizeof(float) * BQ;
+}
+
+template <int HD>
+constexpr size_t dkv_smem_bytes() {
+  // k, v, q[2], do[2], p^T, ds^T, lse[2], delta[2]
+  return 6 * port::Tile<HD>::BYTES + 2 * sizeof(bf16) * BK * PLD +
+         sizeof(float) * 4 * BQ;
+}
+
+// dq, and delta = rowsum(do * o) for the block's rows on the way (written
+// for flash_bwd_dkv_bf16_kernel, which runs after it on the stream). With
+// ROPE, q and k are the rotated operands and dq is rotated back by -pos.
+template <int HD, bool ROPE>
+__global__ void __launch_bounds__(DQ_THREADS)
+    flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ o,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             float* __restrict__ delta, bf16* __restrict__ dq,
+                             const float* __restrict__ pos, int B, int H,
+                             int KV, int T_, int S, int causal, int window,
+                             float scale, float log_theta) {
+  constexpr int LD = port::Tile<HD>::LD;
+  constexpr int ELEMS = port::Tile<HD>::ELEMS;
+  constexpr int KC = HD / 16;  // k steps of q k^T and do v^T
+  constexpr int NT = HD / 8;   // n tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + ELEMS;
+  bf16* ks = dos + ELEMS;      // 2 stages
+  bf16* vs = ks + 2 * ELEMS;   // 2 stages
+  float* dls = reinterpret_cast<float*>(vs + 2 * ELEMS);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane >> 2, tq = lane & 3;
+  // the q-block rank is the slowest grid index: under causal the longest
+  // blocks (the last q blocks) are issued first
+  const int n_qblk = (T_ + BQ - 1) / BQ;
+  const int rank = blockIdx.x / (H * B), rem = blockIdx.x % (H * B);
+  const int h = rem % H, b = rem / H;
+  const int q_start = (causal ? n_qblk - 1 - rank : rank) * BQ;
+  const int kvh = h / (H / KV);
+  const size_t q_base = (static_cast<size_t>(b) * H + h) * T_;
+  const size_t kv_base = (static_cast<size_t>(b) * KV + kvh) * S;
+  const float* posb = ROPE ? pos + static_cast<size_t>(b) * T_ : nullptr;
+
+  const int q_last = min(q_start + BQ, T_) - 1;
+  int k_hi = S;
+  if (causal) k_hi = min(k_hi, q_last + 1);
+  int k_lo = 0;
+  if (window > 0) k_lo = max(k_lo, q_start - window + 1);
+  const int k_begin = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_begin ? (k_hi - k_begin + BK - 1) / BK : 0;
+
+  port::tile_load_async<HD, DQ_THREADS>(qs, q + q_base * HD, q_start, T_);
+  port::tile_load_async<HD, DQ_THREADS>(dos, dout + q_base * HD, q_start, T_);
+  if (n_tiles > 0) {
+    port::tile_load_async<HD, DQ_THREADS>(ks, k + kv_base * HD, k_begin, S);
+    port::tile_load_async<HD, DQ_THREADS>(vs, v + kv_base * HD, k_begin, S);
+  }
+  port::cp_async_commit();
+
+  {  // delta under the copies: two threads a row, HD / 2 columns each
+    const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
+    const int t = q_start + r;
+    float acc = 0.f;
+    if (t < T_) {
+      const size_t at = (q_base + t) * HD + part * (HD / 2);
+#pragma unroll
+      for (int c = 0; c < HD / 2; c += 8) {
+        float ov[8], dv[8];
+        port::load16(o + at + c, ov);
+        port::load16(dout + at + c, dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(dv[e], ov[e], acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      dls[r] = acc;
+      if (t < T_) delta[q_base + t] = acc;
+    }
+  }
+
+  const int row0 = warp * 16 + grp;  // this thread's rows: row0, row0 + 8
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q_start + row0 + 8 * r;
+    lse2[r] = t < T_ ? lse[q_base + t] * LOG2E : 0.f;
+  }
+  float dqacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    dqacc[n][0] = dqacc[n][1] = dqacc[n][2] = dqacc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    const int k0 = k_begin + it * BK;
+    bf16* kst = ks + st * ELEMS;
+    bf16* vst = vs + st * ELEMS;
+    if (it + 1 < n_tiles) {
+      port::tile_load_async<HD, DQ_THREADS>(ks + (st ^ 1) * ELEMS,
+                                            k + kv_base * HD, k0 + BK, S);
+      port::tile_load_async<HD, DQ_THREADS>(vs + (st ^ 1) * ELEMS,
+                                            v + kv_base * HD, k0 + BK, S);
+      port::cp_async_commit();
+      port::cp_async_wait<1>();
+    } else {
+      port::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+      dl[0] = dls[row0];
+      dl[1] = dls[row0 + 8];
+    }
+
+    // s = q k^T and dp = do v^T: 16 rows x 64 keys a warp
+    float sacc[8][4], pacc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = pacc[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t aq[4], ad[4];
+      const int a_off = (warp * 16 + (lane & 15)) * LD + kc * 16 +
+                        (lane >> 4) * 8;
+      port::ldsm_x4(aq, qs + a_off);
+      port::ldsm_x4(ad, dos + a_off);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                          kc * 16 + ((lane >> 3) & 1) * 8;
+        port::ldsm_x4(bk, kst + b_off);
+        port::ldsm_x4(bv, vst + b_off);
+        port::mma_bf16(sacc[2 * np], aq, bk[0], bk[1]);
+        port::mma_bf16(sacc[2 * np + 1], aq, bk[2], bk[3]);
+        port::mma_bf16(pacc[2 * np], ad, bv[0], bv[1]);
+        port::mma_bf16(pacc[2 * np + 1], ad, bv[2], bv[3]);
+      }
+    }
+
+    // p = exp(s scale - lse), ds = p (dp - delta); ds replaces s
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q_start) ||
+                      (window > 0 && k0 <= q_last - window);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sacc[n][e], sl2, -lse2[e >> 1]));
+        if (edge && !visible(q_start + row0 + (e >> 1) * 8,
+                                  k0 + n * 8 + 2 * tq + (e & 1), T_, S,
+                                  causal, window))
+          p = 0.f;
+        sacc[n][e] = p * (pacc[n][e] - dl[e >> 1]);
+      }
+
+    // dq += ds k: ds (bf16) is the A operand straight from the registers
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint32_t a[4] = {
+          port::pack_bf16(sacc[2 * kc][0], sacc[2 * kc][1]),
+          port::pack_bf16(sacc[2 * kc][2], sacc[2 * kc][3]),
+          port::pack_bf16(sacc[2 * kc + 1][0], sacc[2 * kc + 1][1]),
+          port::pack_bf16(sacc[2 * kc + 1][2], sacc[2 * kc + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4];
+        port::ldsm_x4_trans(
+            bk, kst + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    np * 16 + (lane >> 4) * 8);
+        port::mma_bf16(dqacc[2 * np], a, bk[0], bk[1]);
+        port::mma_bf16(dqacc[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // stage st is read; the copy of tile it + 2 may land
+  }
+  port::cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: dq * scale staged in f32 through the q and do tiles (no
+  // longer read), this warp's 16 rows at a stride of HD + 4 floats; then,
+  // the accumulators dead, each lane rotates 8 column pairs (c, c + HD/2)
+  // of a row back by -pos (RoPE) and stores them as bf16, 16 bytes a store
+  constexpr int FLD = HD + 4;
+  static_assert(BQ * FLD * sizeof(float) <= 2 * port::Tile<HD>::BYTES,
+                "the f32 dq tile fits in the q and do tiles");
+  float* dqs = reinterpret_cast<float*>(qs);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = n * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(dqs + row0 * FLD + c) =
+        make_float2(dqacc[n][0] * scale, dqacc[n][1] * scale);
+    *reinterpret_cast<float2*>(dqs + (row0 + 8) * FLD + c) =
+        make_float2(dqacc[n][2] * scale, dqacc[n][3] * scale);
+  }
+  __syncwarp();
+  constexpr int HALF = HD / 2, CPH = HALF / 8;  // 8-pair chunks a row
+  for (int i = lane; i < 16 * CPH; i += 32) {
+    const int r = warp * 16 + i / CPH, c = (i % CPH) * 8;
+    const int t = q_start + r;
+    if (t >= T_) continue;
+    float x1[8], x2[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      x1[e] = dqs[r * FLD + c + e];
+      x2[e] = dqs[r * FLD + c + HALF + e];
+    }
+    if constexpr (ROPE) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        port::rope_pair(x1[e], x2[e], -posb[t], c + e, HALF, log_theta);
+    }
+    port::store16(dq + (q_base + t) * HD + c, x1);
+    port::store16(dq + (q_base + t) * HD + c + HALF, x2);
+  }
+}
+
+// dk and dv of one key block, summed over its GQA group in a fixed order.
+// With ROPE, q and k are the rotated operands and dk is rotated back.
+template <int HD, bool ROPE>
+__global__ void __launch_bounds__(DKV_THREADS)
+    flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              const float* __restrict__ pos, int B, int H,
+                              int KV, int T_, int S, int causal, int window,
+                              float scale, float log_theta) {
+  constexpr int LD = port::Tile<HD>::LD;
+  constexpr int ELEMS = port::Tile<HD>::ELEMS;
+  constexpr int KC = HD / 16;  // k steps of k q^T and v do^T
+  constexpr int NT = HD / 8;   // n tiles of dk, dv
+  constexpr int NW = NT / 4;   // n tiles a warp holds in each half of HD
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + ELEMS;
+  bf16* qs = vs + ELEMS;       // 2 stages
+  bf16* dos = qs + 2 * ELEMS;  // 2 stages
+  bf16* ps = dos + 2 * ELEMS;  // p^T, 64 keys x 64 queries
+  bf16* dss = ps + BK * PLD;   // ds^T
+  float* lses = reinterpret_cast<float*>(dss + BK * PLD);  // 2 stages
+  float* dls = lses + 2 * BQ;                              // 2 stages
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int kg = warp & 3;   // 16-key group of the warp
+  const int ch = warp >> 2;  // its half of the queries (s^T), of HD (dk, dv)
+  // the key-block rank is the slowest grid index: under causal key block 0
+  // sees the most queries, and all key blocks 0 are issued first
+  const int rank = blockIdx.x / (KV * B), rem = blockIdx.x % (KV * B);
+  const int kvh = rem % KV, b = rem / KV;
+  const int k_start = rank * BK;
+  const int G = H / KV;
+  const size_t kv_base = (static_cast<size_t>(b) * KV + kvh) * S;
+  const float* posb = ROPE ? pos + static_cast<size_t>(b) * T_ : nullptr;
+
+  // the queries any key of this block is visible to
+  const int k_last = min(k_start + BK, S) - 1;
+  const int q_lo = causal ? k_start : 0;
+  int q_hi = T_;
+  if (window > 0) q_hi = min(q_hi, k_last + window);
+  const int q_begin = (q_lo / BQ) * BQ;
+  const int nq = q_hi > q_begin ? (q_hi - q_begin + BQ - 1) / BQ : 0;
+  const int n_it = G * nq;  // (head of the group, q block), heads outer
+
+  auto load_q = [&](int it, int st) {
+    const int q0 = q_begin + (it % nq) * BQ;
+    const size_t q_base =
+        (static_cast<size_t>(b) * H + kvh * G + it / nq) * T_;
+    port::tile_load_async<HD, DKV_THREADS>(qs + st * ELEMS, q + q_base * HD,
+                                           q0, T_);
+    port::tile_load_async<HD, DKV_THREADS>(dos + st * ELEMS,
+                                           dout + q_base * HD, q0, T_);
+    if (tid < 2 * BQ) {  // lse (threads 0-63) and delta (64-127), 4 bytes
+      const int i = tid % BQ, t = q0 + i;
+      const bool ok = t < T_;
+      const float* src = (tid < BQ ? lse : delta) + q_base + (ok ? t : 0);
+      port::cp_async4((tid < BQ ? lses : dls) + st * BQ + i, src, ok);
+    }
+  };
+  port::tile_load_async<HD, DKV_THREADS>(ks, k + kv_base * HD, k_start, S);
+  port::tile_load_async<HD, DKV_THREADS>(vs, v + kv_base * HD, k_start, S);
+  if (n_it > 0) load_q(0, 0);
+  port::cp_async_commit();
+
+  const float sl2 = scale * LOG2E;
+  float dkacc[NT / 2][4], dvacc[NT / 2][4];
+#pragma unroll
+  for (int n = 0; n < NT / 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const int q0 = q_begin + (it % nq) * BQ;
+    bf16* qst = qs + st * ELEMS;
+    bf16* dost = dos + st * ELEMS;
+    const float* lst = lses + st * BQ;
+    const float* dlst = dls + st * BQ;
+    if (it + 1 < n_it) {
+      load_q(it + 1, st ^ 1);
+      port::cp_async_commit();
+      port::cp_async_wait<1>();
+    } else {
+      port::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // s^T = k q^T and dp^T = v do^T: 16 keys x 32 queries a warp
+    float sacc[4][4], pacc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = pacc[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t ak[4], av[4];
+      const int a_off = (kg * 16 + (lane & 15)) * LD + kc * 16 +
+                        (lane >> 4) * 8;
+      port::ldsm_x4(ak, ks + a_off);
+      port::ldsm_x4(av, vs + a_off);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bq[4], bd[4];
+        const int b_off =
+            (ch * 32 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+            kc * 16 + ((lane >> 3) & 1) * 8;
+        port::ldsm_x4(bq, qst + b_off);
+        port::ldsm_x4(bd, dost + b_off);
+        port::mma_bf16(sacc[2 * np], ak, bq[0], bq[1]);
+        port::mma_bf16(sacc[2 * np + 1], ak, bq[2], bq[3]);
+        port::mma_bf16(pacc[2 * np], av, bd[0], bd[1]);
+        port::mma_bf16(pacc[2 * np + 1], av, bd[2], bd[3]);
+      }
+    }
+
+    // p^T and ds^T, rounded to bf16 into shared memory
+    const bool edge = q0 + BQ > T_ || k_start + BK > S ||
+                      (causal && q0 < k_start + BK - 1) ||
+                      (window > 0 && k_start <= q0 + BQ - 1 - window);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = ch * 32 + n * 8 + 2 * tq + (e & 1);
+        float p = exp2f(fmaf(sacc[n][e], sl2, -lst[ql] * LOG2E));
+        if (edge && !visible(q0 + ql, k_start + kg * 16 + grp +
+                                               (e >> 1) * 8,
+                                  T_, S, causal, window))
+          p = 0.f;
+        sacc[n][e] = p;
+        pacc[n][e] = p * (pacc[n][e] - dlst[ql]);
+      }
+      const int r = kg * 16 + grp, c = ch * 32 + n * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(ps + r * PLD + c) =
+          port::pack_bf16(sacc[n][0], sacc[n][1]);
+      *reinterpret_cast<uint32_t*>(ps + (r + 8) * PLD + c) =
+          port::pack_bf16(sacc[n][2], sacc[n][3]);
+      *reinterpret_cast<uint32_t*>(dss + r * PLD + c) =
+          port::pack_bf16(pacc[n][0], pacc[n][1]);
+      *reinterpret_cast<uint32_t*>(dss + (r + 8) * PLD + c) =
+          port::pack_bf16(pacc[n][2], pacc[n][3]);
+    }
+    __syncthreads();
+
+    // dv += p^T do and dk += ds^T q over the 64 queries: the warp's 16 keys
+    // x its n tiles {half * NT/2 + ch * NW + j}, so that column c and
+    // c + HD/2 (a RoPE pair) stay in one thread
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t ap[4], ad[4];
+      const int a_off = (kg * 16 + (lane & 15)) * PLD + kc * 16 +
+                        (lane >> 4) * 8;
+      port::ldsm_x4(ap, ps + a_off);
+      port::ldsm_x4(ad, dss + a_off);
+      const int b_row = (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if constexpr (NW >= 2) {
+#pragma unroll
+          for (int j = 0; j < NW; j += 2) {
+            const int col = (half * (NT / 2) + ch * NW + j) * 8 +
+                            (lane >> 4) * 8;
+            uint32_t bd[4], bq[4];
+            port::ldsm_x4_trans(bd, dost + b_row + col);
+            port::ldsm_x4_trans(bq, qst + b_row + col);
+            port::mma_bf16(dvacc[half * NW + j], ap, bd[0], bd[1]);
+            port::mma_bf16(dvacc[half * NW + j + 1], ap, bd[2], bd[3]);
+            port::mma_bf16(dkacc[half * NW + j], ad, bq[0], bq[1]);
+            port::mma_bf16(dkacc[half * NW + j + 1], ad, bq[2], bq[3]);
+          }
+        } else {
+          const int col = (half * (NT / 2) + ch) * 8;
+          uint32_t bd[2], bq[2];
+          port::ldsm_x2_trans(bd, dost + b_row + col);
+          port::ldsm_x2_trans(bq, qst + b_row + col);
+          port::mma_bf16(dvacc[half], ap, bd[0], bd[1]);
+          port::mma_bf16(dkacc[half], ad, bq[0], bq[1]);
+        }
+      }
+    }
+    __syncthreads();  // p^T, ds^T and stage st are read
+  }
+  port::cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: dk * scale (rotated back by -pos), staged through ks and vs
+#pragma unroll
+  for (int n = 0; n < NT / 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[n][e] *= scale;
+  if constexpr (ROPE) {
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = k_start + kg * 16 + grp + (e >> 1) * 8;
+        if (s < S)
+          port::rope_pair(dkacc[j][e], dkacc[NW + j][e], -posb[s],
+                          (ch * NW + j) * 8 + 2 * tq + (e & 1), HD / 2,
+                          log_theta);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+    const int c = ((i / NW) * (NT / 2) + ch * NW + i % NW) * 8 + 2 * tq;
+    const int r = kg * 16 + grp;
+    *reinterpret_cast<uint32_t*>(ks + r * LD + c) =
+        port::pack_bf16(dkacc[i][0], dkacc[i][1]);
+    *reinterpret_cast<uint32_t*>(ks + (r + 8) * LD + c) =
+        port::pack_bf16(dkacc[i][2], dkacc[i][3]);
+    *reinterpret_cast<uint32_t*>(vs + r * LD + c) =
+        port::pack_bf16(dvacc[i][0], dvacc[i][1]);
+    *reinterpret_cast<uint32_t*>(vs + (r + 8) * LD + c) =
+        port::pack_bf16(dvacc[i][2], dvacc[i][3]);
+  }
+  __syncthreads();
+  constexpr int CPR = HD / 8;
+  for (int c = tid; c < BK * CPR; c += DKV_THREADS) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int s = k_start + r;
+    if (s < S) {
+      const size_t at = (kv_base + s) * HD + col;
+      *reinterpret_cast<uint4*>(dk + at) =
+          *reinterpret_cast<const uint4*>(ks + r * LD + col);
+      *reinterpret_cast<uint4*>(dv + at) =
+          *reinterpret_cast<const uint4*>(vs + r * LD + col);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches: f32 -> the FMA bodies (three kernels), bf16 -> the tensor-core
+// bodies (two kernels); with RoPE the rotation pass first
+// ---------------------------------------------------------------------------
+
+constexpr int ROPE_THREADS = 256;
+
+// q and k rotated by pos into the scratch qr, kr (the RoPE backward's first
+// kernel; the bodies then read the rotated operands, the same values the
+// forward's rotation pass made).
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const float* lse, const void* dout, void* dq, void* dk, void* dv,
-           float* delta, int B, int H, int KV, int T_, int S, int causal,
-           int window, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(ROPE_THREADS)
+    flash_bwd_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          T* __restrict__ qr, T* __restrict__ kr,
+                          const float* __restrict__ pos, int B, int H, int KV,
+                          int T_, float log_theta) {
+  port::rope_qk<T, HD>(
+      static_cast<size_t>(blockIdx.x) * ROPE_THREADS + threadIdx.x, q, k, qr,
+      kr, pos, B, H, KV, T_, log_theta);
+}
+
+template <typename T, int HD>
+int launch_rope_pass(const void* q, const void* k, void* rot,
+                     const float* pos, int B, int H, int KV, int T_,
+                     float log_theta, cudaStream_t stream) {
+  constexpr int PAIRS = port::Vec16<T>::N;  // pairs a thread
+  const long long threads =
+      static_cast<long long>(B) * (H + KV) * T_ * (HD / 2 / PAIRS);
+  const long long blocks = (threads + ROPE_THREADS - 1) / ROPE_THREADS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  T* qr = static_cast<T*>(rot);
+  flash_bwd_rope_kernel<T, HD>
+      <<<static_cast<unsigned>(blocks), ROPE_THREADS, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), qr,
+          qr + static_cast<size_t>(B) * H * T_ * HD, pos, B, H, KV, T_,
+          log_theta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, bool ROPE>
+int launch_f32(const void* q, const void* k, const void* v, const void* o,
+               const float* lse, const void* dout, void* dq, void* dk,
+               void* dv, float* delta, const float* pos, int B, int H,
+               int KV, int T_, int S, int causal, int window, float scale,
+               float log_theta, cudaStream_t stream) {
+  using T = float;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -341,47 +916,115 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr size_t smem = smem_bytes<HD>();
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, HD>,
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, HD, ROPE>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, HD, ROPE>;
+  err = cudaFuncSetAttribute(dkv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+  err = cudaFuncSetAttribute(dq_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  flash_bwd_dkv_kernel<T, HD><<<dim3((S + BK - 1) / BK, KV, B), THREADS, smem,
-                      stream>>>(qt, kt, vt, dot, lse, delta,
-                                static_cast<T*>(dk), static_cast<T*>(dv), H,
-                                KV, T_, S, causal, window, scale);
+  dkv_kernel<<<dim3((S + BK - 1) / BK, KV, B), THREADS, smem, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      pos, H, KV, T_, S, causal, window, scale, log_theta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<T, HD><<<dim3((T_ + BQ - 1) / BQ, H, B), THREADS, smem,
-                     stream>>>(qt, kt, vt, dot, lse, delta,
-                               static_cast<T*>(dq), H, KV, T_, S, causal,
-                               window, scale);
+  dq_kernel<<<dim3((T_ + BQ - 1) / BQ, H, B), THREADS, smem, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), pos, H, KV, T_, S,
+      causal, window, scale, log_theta);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const void* o, const float* lse, const void* dout, void* dq,
-                void* dk, void* dv, float* delta, int B, int H, int KV,
-                int T_, int S, int causal, int window, float scale,
-                cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, KV,
-                           T_, S, causal, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, KV,
-                           T_, S, causal, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H,
-                            KV, T_, S, causal, window, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+template <int HD, bool ROPE>
+int launch_bf16(const void* q, const void* k, const void* v, const void* o,
+                const float* lse, const void* dout, void* dq, void* dk,
+                void* dv, float* delta, const float* pos, int B, int H,
+                int KV, int T_, int S, int causal, int window, float scale,
+                float log_theta, cudaStream_t stream) {
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  auto dq_kernel = flash_bwd_dq_bf16_kernel<HD, ROPE>;
+  auto dkv_kernel = flash_bwd_dkv_bf16_kernel<HD, ROPE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dq_smem_bytes<HD>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dkv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dkv_smem_bytes<HD>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long dq_blocks =
+      static_cast<long long>((T_ + BQ - 1) / BQ) * H * B;
+  const long long dkv_blocks =
+      static_cast<long long>((S + BK - 1) / BK) * KV * B;
+  if (dq_blocks > 0x7fffffffLL || dkv_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  dq_kernel<<<static_cast<unsigned>(dq_blocks), DQ_THREADS,
+              dq_smem_bytes<HD>(), stream>>>(
+      qt, kt, vt, static_cast<const bf16*>(o), dot, lse, delta,
+      static_cast<bf16*>(dq), pos, B, H, KV, T_, S, causal, window, scale,
+      log_theta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkv_kernel<<<static_cast<unsigned>(dkv_blocks), DKV_THREADS,
+               dkv_smem_bytes<HD>(), stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), pos, B, H, KV, T_, S, causal, window, scale,
+      log_theta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// With ROPE: q and k rotated into rot (qr then kr) first; the bodies run on
+// the rotated operands and rotate dq, dk back in their epilogues.
+template <int HD, bool ROPE>
+int launch(int dtype, const void* q, const void* k, const void* v,
+           const void* o, const float* lse, const void* dout, void* dq,
+           void* dk, void* dv, float* delta, const float* pos, void* rot,
+           int B, int H, int KV, int T_, int S, int causal, int window,
+           float scale, float log_theta, cudaStream_t stream) {
+  if (dtype != port::kF32 && dtype != port::kBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (ROPE) {
+    if (rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int err =
+        dtype == port::kF32
+            ? launch_rope_pass<float, HD>(q, k, rot, pos, B, H, KV, T_,
+                                          log_theta, stream)
+            : launch_rope_pass<bf16, HD>(q, k, rot, pos, B, H, KV, T_,
+                                         log_theta, stream);
+    if (err != 0) return err;
+    const size_t esize = dtype == port::kF32 ? sizeof(float) : sizeof(bf16);
+    q = rot;
+    k = static_cast<const char*>(rot) +
+        static_cast<size_t>(B) * H * T_ * HD * esize;
   }
+  if (dtype == port::kF32)
+    return launch_f32<HD, ROPE>(q, k, v, o, lse, dout, dq, dk, dv, delta, pos,
+                                B, H, KV, T_, S, causal, window, scale,
+                                log_theta, stream);
+  return launch_bf16<HD, ROPE>(q, k, v, o, lse, dout, dq, dk, dv, delta, pos,
+                               B, H, KV, T_, S, causal, window, scale,
+                               log_theta, stream);
+}
+
+template <int HD>
+int launch_hd(int dtype, const void* q, const void* k, const void* v,
+              const void* o, const float* lse, const void* dout, void* dq,
+              void* dk, void* dv, float* delta, const float* pos, void* rot,
+              int B, int H, int KV, int T_, int S, int causal, int window,
+              float scale, float log_theta, cudaStream_t stream) {
+  if (pos != nullptr)
+    return launch<HD, true>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta,
+                            pos, rot, B, H, KV, T_, S, causal, window, scale,
+                            log_theta, stream);
+  return launch<HD, false>(dtype, q, k, v, o, lse, dout, dq, dk, dv, delta,
+                           pos, rot, B, H, KV, T_, S, causal, window, scale,
+                           log_theta, stream);
 }
 
 }  // namespace
@@ -390,24 +1033,37 @@ extern "C" {
 
 // q, o, dout, dq (B, H, T, hd); k, v, dk, dv (B, KV, S, hd); all of
 // `dtype`, contiguous. lse (B, H, T) f32; delta (B, H, T) f32 scratch.
-// window <= 0 means no window. hd is 32, 64 or 128.
+// pos (B, T) f32 positions or null: with pos (RoPE attention, S == T) q and
+// k are the UNROTATED inputs, rotated inside, and dq, dk are returned for
+// them; log_theta = log(rope_theta); for bf16 `rot` is scratch of
+// B * (H + KV) * T * hd bf16 for the rotated q and k. window <= 0 means no
+// window. hd is 32, 64 or 128.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const float* lse, const void* dout,
-                        void* dq, void* dk, void* dv, float* delta, int B,
-                        int H, int KV, int T_, int S, int hd, int causal,
-                        int window, float scale, int dtype,
+                        void* dq, void* dk, void* dv, float* delta,
+                        const float* pos, void* rot, int B, int H, int KV,
+                        int T_, int S, int hd, int causal, int window,
+                        float scale, float log_theta, int dtype,
                         cudaStream_t stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || T_ < 1 || S < 1 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 || (pos != nullptr && S != T_))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == port::kF32)
-    return dispatch_hd<float>(hd, q, k, v, o, lse, dout, dq, dk, dv, delta, B,
-                              H, KV, T_, S, causal, window, scale, stream);
-  if (dtype == port::kBF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, dout, dq, dk, dv,
-                                      delta, B, H, KV, T_, S, causal, window,
-                                      scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 32:
+      return launch_hd<32>(dtype, q, k, v, o, lse, dout, dq, dk, dv,
+                           delta, pos, rot, B, H, KV, T_, S, causal,
+                           window, scale, log_theta, stream);
+    case 64:
+      return launch_hd<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv,
+                           delta, pos, rot, B, H, KV, T_, S, causal,
+                           window, scale, log_theta, stream);
+    case 128:
+      return launch_hd<128>(dtype, q, k, v, o, lse, dout, dq, dk, dv,
+                            delta, pos, rot, B, H, KV, T_, S, causal,
+                            window, scale, log_theta, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

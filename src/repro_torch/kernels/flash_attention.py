@@ -8,15 +8,24 @@
   ``kv_offsets`` left-pad mask of the serving prefill and, when asked, the
   f32 row logsumexp.
 - ``flash_attention_rope_fwd`` replaces ``flash_attention_rope_pallas``:
-  the same kernel with its RoPE flag on, rotating each q and k tile by the
-  positions ``pos`` (B, T) right after the load (self-attention, S == T).
+  q and k rotated by the positions ``pos`` (B, T) inside the call
+  (self-attention, S == T): a first kernel rotates each value once into
+  scratch the wrapper allocates, then the same attention kernel runs.
 - ``flash_attention_backward`` replaces
   ``flash_attention_backward_pallas`` (its split path): dq, dk, dv from
   q, k, v, o, lse and do, the probabilities recomputed from lse; dk and dv
   are summed over each GQA group inside the kernel.
-  ``flash_attention_rope_backward`` is the reference's RoPE wrapper
-  (``:629``), not a kernel: q and k rotated by ``pos`` in plain torch, the
-  backward kernel, dq and dk rotated back by ``-pos``.
+  ``flash_attention_rope_backward`` (the reference's RoPE wrapper,
+  ``:629``) is the same kernel with its RoPE flag on: on CUDA one call
+  takes the UNROTATED q, k and ``pos``, rotates q and k as the forward
+  does (bit for bit the same operands), and rotates dq and dk back by
+  ``-pos`` in the kernels' epilogues. On the CPU it is the composite plain
+  version: q and k rotated in plain torch, the plain backward, dq and dk
+  rotated back.
+
+bf16 runs on the tensor-core bodies (``mma.sync`` with f32 accumulation),
+f32 on the FMA bodies: the dtype chooses, and the kernels' C entry points
+dispatch on it.
 
 A query row that sees no key (a left-pad row, ``t < kv_offsets[b]``) is
 written as 0 with ``lse = -inf``; the Pallas kernel leaves there a mean of
@@ -30,8 +39,9 @@ On a CPU tensor each computes its plain version
 :func:`~repro_torch.kernels.ref.attention_backward_ref`); on a CUDA tensor
 it launches the kernel or raises. The kernels' limits: every operand of
 one dtype (f32 or bf16), contiguous, ``hd`` in ``HEAD_DIMS`` (the
-backward: ``BWD_HEAD_DIMS``, its four f32 tiles must fit in shared
-memory), ``H % KV == 0``.
+backward: ``BWD_HEAD_DIMS``; its f32 tiles must fit in shared memory and
+its bf16 accumulators in registers), ``H % KV == 0``; bf16 operands
+16-byte aligned (the tensor-core bodies copy 16-byte chunks).
 """
 from __future__ import annotations
 
@@ -50,10 +60,10 @@ launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_rope": 0,
 HEAD_DIMS = (32, 64, 128, 256)
 BWD_HEAD_DIMS = (32, 64, 128)
 
-_SIGNATURES = {"flash_attention_fwd": [L.P] * 7 + [L.I] * 8
+_SIGNATURES = {"flash_attention_fwd": [L.P] * 8 + [L.I] * 8
                + [L.F, L.F, L.I, L.P]}
-_BWD_SIGNATURES = {"flash_attention_bwd": [L.P] * 10 + [L.I] * 8
-                   + [L.F, L.I, L.P]}
+_BWD_SIGNATURES = {"flash_attention_bwd": [L.P] * 12 + [L.I] * 8
+                   + [L.F, L.F, L.I, L.P]}
 
 
 def reset_launches() -> None:
@@ -83,7 +93,31 @@ def _check_qkv(q: Tensor, k: Tensor, v: Tensor, head_dims=HEAD_DIMS
         raise ValueError(f"B={B}, H={H}: the grid takes at most 65535 each")
     L.check_index("T", T)
     L.check_index("S", S)
+    if q.dtype == torch.bfloat16 and not L.aligned(q, k, v):
+        raise ValueError("bf16 q, k, v must be 16-byte aligned")
     return B, H, KV, T, S, hd, code
+
+
+def _positions(q: Tensor, k: Tensor, pos: Tensor) -> Tensor:
+    """pos (B, T) as the contiguous f32 the kernels take, for head-major
+    q, k already checked by :func:`_check_qkv`; RoPE attention is
+    self-attention (S == T), and its rotation pass reads q and k in 16-byte
+    chunks."""
+    B, T, S = q.shape[0], q.shape[2], k.shape[2]
+    if S != T:
+        raise ValueError(f"RoPE attention is self-attention: S={S} != T={T}")
+    if not L.aligned(q, k):
+        raise ValueError("q and k must be 16-byte aligned for RoPE")
+    pos32 = pos.to(torch.float32).contiguous()
+    L.check("pos", pos32, (B, T), q.device)
+    return pos32
+
+
+def _rope_scratch(q: Tensor, k: Tensor) -> Tensor:
+    """Room for the rotated q and k, which the kernels' first pass writes
+    once and the attention kernels read."""
+    return torch.empty(q.numel() + k.numel(), device=q.device,
+                       dtype=q.dtype)
 
 
 def _window(window: Optional[int]) -> int:
@@ -118,9 +152,9 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, *,
     lib = L.bind("flash_attention.cu", _SIGNATURES)
     with torch.cuda.device(dev):
         L.call(lib.flash_attention_fwd, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), o.data_ptr(), L.ptr(lse), L.ptr(offs), None, B,
-               H, KV, T, S, hd, int(causal), w, 1.0 / math.sqrt(hd), 0.0,
-               code, L.stream(dev))
+               v.data_ptr(), o.data_ptr(), L.ptr(lse), L.ptr(offs), None,
+               None, B, H, KV, T, S, hd, int(causal), w, 1.0 / math.sqrt(hd),
+               0.0, code, L.stream(dev))
     launches["flash_attention"] += 1
     return (o, lse) if return_lse else o
 
@@ -139,20 +173,18 @@ def flash_attention_rope_fwd(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
                                       return_lse=return_lse)
     B, H, KV, T, S, hd, code = _check_qkv(q, k, v)
     dev = q.device
-    if S != T:
-        raise ValueError(f"RoPE attention is self-attention: S={S} != T={T}")
-    pos32 = pos.to(torch.float32).contiguous()
-    L.check("pos", pos32, (B, T), dev)
+    pos32 = _positions(q, k, pos)
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, T), device=dev, dtype=torch.float32)
            if return_lse else None)
     w = _window(window)
+    rot = _rope_scratch(q, k)
     lib = L.bind("flash_attention.cu", _SIGNATURES)
     with torch.cuda.device(dev):
         L.call(lib.flash_attention_fwd, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), o.data_ptr(), L.ptr(lse), None,
-               pos32.data_ptr(), B, H, KV, T, S, hd, int(causal), w,
-               1.0 / math.sqrt(hd), math.log(theta), code, L.stream(dev))
+               pos32.data_ptr(), L.ptr(rot), B, H, KV, T, S, hd, int(causal),
+               w, 1.0 / math.sqrt(hd), math.log(theta), code, L.stream(dev))
     launches["flash_attention_rope"] += 1
     return (o, lse) if return_lse else o
 
@@ -161,32 +193,13 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                              lse: Tensor, do: Tensor, *, causal: bool = True,
                              window: Optional[int] = None
                              ) -> Tuple[Tensor, Tensor, Tensor]:
-    """VJP of the forward w.r.t. (q, k, v) (rotated q, k for RoPE
-    attention). q, o, do: (B, H, T, hd); k, v: (B, KV, S, hd); lse (B, H, T)
-    f32. Returns (dq, dk, dv) in q's dtype, dk and dv summed over each GQA
-    group."""
+    """VJP of the forward w.r.t. (q, k, v). q, o, do: (B, H, T, hd); k, v:
+    (B, KV, S, hd); lse (B, H, T) f32. Returns (dq, dk, dv) in q's dtype, dk
+    and dv summed over each GQA group."""
     if not q.is_cuda:
         return ref.attention_backward_ref(q, k, v, o, lse, do, causal=causal,
                                           window=window)
-    B, H, KV, T, S, hd, code = _check_qkv(q, k, v, BWD_HEAD_DIMS)
-    dev = q.device
-    L.check("o", o, (B, H, T, hd), dev, q.dtype)
-    L.check("do", do, (B, H, T, hd), dev, q.dtype)
-    L.check("lse", lse, (B, H, T), dev, torch.float32)
-    w = _window(window)
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    delta = torch.empty((B, H, T), device=dev, dtype=torch.float32)
-    lib = L.bind("flash_attention_bwd.cu", _BWD_SIGNATURES)
-    with torch.cuda.device(dev):
-        L.call(lib.flash_attention_bwd, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-               B, H, KV, T, S, hd, int(causal), w, 1.0 / math.sqrt(hd), code,
-               L.stream(dev))
-    launches["flash_attention_backward"] += 1
-    return dq, dk, dv
+    return _backward(q, k, v, o, lse, do, None, None, causal, window)
 
 
 def flash_attention_rope_backward(q: Tensor, k: Tensor, v: Tensor,
@@ -196,14 +209,50 @@ def flash_attention_rope_backward(q: Tensor, k: Tensor, v: Tensor,
                                   window: Optional[int] = None
                                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """VJP of :func:`flash_attention_rope_fwd` w.r.t. the UNROTATED (q, k,
-    v): the rotation is orthogonal and position-wise, so q and k are rotated
-    by pos (plain torch, in their dtype), :func:`flash_attention_backward`
-    runs on the rotated inputs, and dq, dk are rotated back by -pos. dv is
-    untouched by RoPE."""
-    qr = ref.rope_rotate_hm(q, pos, theta)
-    kr = ref.rope_rotate_hm(k, pos, theta)
-    dqr, dkr, dv = flash_attention_backward(qr, kr, v, o, lse, do,
-                                            causal=causal, window=window)
-    back = -pos.to(torch.float32)
-    return (ref.rope_rotate_hm(dqr, back, theta),
-            ref.rope_rotate_hm(dkr, back, theta), dv)
+    v). On CUDA one call of the backward kernels with their RoPE flag on. On
+    the CPU the plain composite: the rotation is orthogonal and
+    position-wise, so q and k are rotated by pos (in their dtype), the plain
+    backward runs on the rotated inputs, and dq, dk are rotated back by
+    -pos. dv is untouched by RoPE."""
+    if not q.is_cuda:
+        qr = ref.rope_rotate_hm(q, pos, theta)
+        kr = ref.rope_rotate_hm(k, pos, theta)
+        dqr, dkr, dv = ref.attention_backward_ref(qr, kr, v, o, lse, do,
+                                                  causal=causal,
+                                                  window=window)
+        back = -pos.to(torch.float32)
+        return (ref.rope_rotate_hm(dqr, back, theta),
+                ref.rope_rotate_hm(dkr, back, theta), dv)
+    return _backward(q, k, v, o, lse, do, pos, theta, causal, window)
+
+
+def _backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+              do: Tensor, pos: Optional[Tensor], theta: Optional[float],
+              causal: bool, window: Optional[int]
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One call of the backward kernels; with ``pos`` (and ``theta``) q
+    and k are the unrotated inputs of RoPE attention."""
+    B, H, KV, T, S, hd, code = _check_qkv(q, k, v, BWD_HEAD_DIMS)
+    dev = q.device
+    pos32 = None if pos is None else _positions(q, k, pos)
+    L.check("o", o, (B, H, T, hd), dev, q.dtype)
+    L.check("do", do, (B, H, T, hd), dev, q.dtype)
+    L.check("lse", lse, (B, H, T), dev, torch.float32)
+    if q.dtype == torch.bfloat16 and not L.aligned(o, do):
+        raise ValueError("bf16 o and do must be 16-byte aligned")
+    w = _window(window)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, T), device=dev, dtype=torch.float32)
+    rot = None if pos is None else _rope_scratch(q, k)
+    log_theta = 0.0 if pos is None else math.log(theta)
+    lib = L.bind("flash_attention_bwd.cu", _BWD_SIGNATURES)
+    with torch.cuda.device(dev):
+        L.call(lib.flash_attention_bwd, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+               L.ptr(pos32), L.ptr(rot), B, H, KV, T, S, hd, int(causal), w,
+               1.0 / math.sqrt(hd), log_theta, code, L.stream(dev))
+    launches["flash_attention_backward"] += 1
+    return dq, dk, dv

@@ -700,12 +700,17 @@ def test_cuda_swiglu_backward_matches_plain(shape, dtype):
 
 
 ATTN_TRAIN_CASES = [
-    # (B, H, KV, T, hd), causal, window
+    # (B, H, KV, T, hd), causal, window: ragged T (17, 100, 130), a window,
+    # non-causal, GQA 2:1, 4:1 and 8:1, hd 32 to 256 (the forward only)
     ((1, 2, 2, 17, 32), True, None),
     ((2, 4, 2, 100, 128), True, 13),
     ((1, 8, 1, 128, 64), False, None),
     ((2, 16, 8, 130, 128), True, None),
+    ((1, 8, 2, 100, 64), True, None),
+    ((2, 2, 1, 70, 256), True, 9),
 ]
+ATTN_BWD_CASES = [c for c in ATTN_TRAIN_CASES
+                  if c[0][-1] in FA.BWD_HEAD_DIMS]
 
 
 def _attn_inputs(gen, shape, dtype):
@@ -715,6 +720,11 @@ def _attn_inputs(gen, shape, dtype):
     pos = (torch.arange(T, device="cuda")[None]
            + 3 * torch.arange(B, device="cuda")[:, None]).float()
     return q, k, v, pos, do
+
+
+def _fa_launches(**counts):
+    return {"flash_attention": 0, "flash_attention_rope": 0,
+            "flash_attention_backward": 0, **counts}
 
 
 @pytest.mark.gpu
@@ -732,14 +742,16 @@ def test_cuda_flash_attention_rope_matches_plain(shape, causal, window,
                                       window=window, return_lse=True)
     tol = _bf16_tol(dtype)
     torch.testing.assert_close(o.float(), orf.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(lse, lr, rtol=1e-4, atol=1e-4)
-    assert FA.launches == {"flash_attention": 0, "flash_attention_rope": 1,
-                           "flash_attention_backward": 0}
+    # f32: 1e-4. bf16: the kernel rotates q and k in f32 and rounds them to
+    # bf16 for the tensor cores, while the plain version keeps them in f32,
+    # so the logits (and lse) differ by bf16 rounding: BF16_TOL
+    torch.testing.assert_close(lse, lr, rtol=tol, atol=tol)
+    assert FA.launches == _fa_launches(flash_attention_rope=1)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", SERVING_DTYPES)
-@pytest.mark.parametrize("shape,causal,window", ATTN_TRAIN_CASES)
+@pytest.mark.parametrize("shape,causal,window", ATTN_BWD_CASES)
 def test_cuda_flash_attention_backward_matches_plain(shape, causal, window,
                                                      dtype):
     gen = _on_card()
@@ -757,7 +769,45 @@ def test_cuda_flash_attention_backward_matches_plain(shape, causal, window,
     again = FA.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
                                         window=window)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
-    assert FA.launches["flash_attention_backward"] == 2
+    assert FA.launches == _fa_launches(flash_attention_backward=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape,causal,window", ATTN_BWD_CASES)
+def test_cuda_flash_attention_rope_backward_matches_plain(shape, causal,
+                                                          window, dtype,
+                                                          monkeypatch):
+    """One call on the UNROTATED q, k against the composite plain version
+    (q, k rotated, the plain backward, dq, dk rotated back); no plain
+    rotation runs around the kernel; two calls give the same bits."""
+    gen = _on_card()
+    q, k, v, pos, do = _attn_inputs(gen, shape, dtype)
+    o, lse = tref.attention_rope_ref(q, k, v, pos, theta=1e4, causal=causal,
+                                     window=window, return_lse=True)
+    qr, kr = tref.rope_rotate_hm(q, pos, 1e4), tref.rope_rotate_hm(k, pos,
+                                                                   1e4)
+    dqr, dkr, dvr = tref.attention_backward_ref(qr, kr, v, o, lse, do,
+                                                causal=causal, window=window)
+    want = (tref.rope_rotate_hm(dqr, -pos, 1e4),
+            tref.rope_rotate_hm(dkr, -pos, 1e4), dvr)
+    FA.reset_launches()
+    calls = []
+    real = tref.rope_rotate_hm
+    monkeypatch.setattr(tref, "rope_rotate_hm",
+                        lambda *a: calls.append(1) or real(*a))
+    got = FA.flash_attention_rope_backward(q, k, v, pos, o, lse, do,
+                                           theta=1e4, causal=causal,
+                                           window=window)
+    again = FA.flash_attention_rope_backward(q, k, v, pos, o, lse, do,
+                                             theta=1e4, causal=causal,
+                                             window=window)
+    tol = 5e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert not calls
+    assert FA.launches == _fa_launches(flash_attention_backward=2)
 
 
 @pytest.mark.gpu
@@ -828,6 +878,20 @@ def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.randn(1, 2, 8, 64, device="cuda")
     with pytest.raises(TypeError):
         FA.flash_attention_backward(q, q, q, q, lse.double(), q)
+    # bf16 operands, and f32 q, k with RoPE, must be 16-byte aligned: the
+    # tensor-core bodies and the rotation pass copy 16-byte chunks
+    off = torch.zeros(1 + q.numel(), device="cuda",
+                      dtype=torch.bfloat16)[1:].view(q.shape)
+    qb = q.bfloat16()
+    pos0 = torch.zeros(1, 8, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_backward(off, qb, qb, qb, lse, qb)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_rope_fwd(qb, off, qb, pos0, theta=1e4)
+    off32 = torch.zeros(1 + q.numel(), device="cuda")[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_rope_backward(off32, q, q, pos0, q, lse, q,
+                                         theta=1e4)
     with pytest.raises(ValueError):
         FA.flash_attention_rope_fwd(q, q[:, :, :4], q[:, :, :4],
                                     torch.zeros(1, 8, device="cuda"),
