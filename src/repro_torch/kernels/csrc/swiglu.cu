@@ -13,16 +13,30 @@
 // balance point, so the bound is arithmetic. At decode (N = 8) the kernel
 // must read both weight matrices (50 MB in bf16) for 0.4 GFLOP: bytes.
 //
-// Design (a first, simple kernel; tensor cores, TMA and split-K are later
-// work): one block computes a 64 x 64 tile of BOTH g and u, so each x tile
-// is read once for the two products. The d axis is walked in steps of 16:
-// 256 threads stage the x tile (transposed) and the two weight tiles in
-// shared memory as f32, then each thread accumulates a 4 x 4 sub-tile of g
-// and of u with f32 FMAs (32 FMAs per three 16-byte shared loads). The
-// silu product runs in the epilogue on the f32 sums. Ragged N, d and F
-// edges are zero-filled on load and masked on store.
+// Two bodies; the wrapper (kernels/swiglu.py:_body) picks one from (d, F,
+// dtype), never from N:
+// - swiglu_wgmma_kernel, bf16 with d and F multiples of 8 (TMA's 16-byte
+//   row strides): the persistent warp-specialised block of hopper.cuh. A
+//   tile is 128 rows x 128 columns of BOTH g and u, so each x tile feeds
+//   the two products: a stage holds the x tile (128 x 64, K-major) and the
+//   wg and wu tiles (64 x 128 each, MN-major: the weights are (d, F)
+//   row-major), and each consumer warpgroup accumulates its 64 rows of g
+//   and of u on wgmma (128 f32 registers a thread). The epilogue forms
+//   silu(g) * u from the f32 sums and stores g and h in bf16 (16 bytes a
+//   lane), masked at ragged N and F; rows and depth past the ends arrive
+//   from TMA as zeros. At decode the same body
+//   streams the weights through the four-stage ring (4 x 32 KB of weight
+//   tiles in flight a block); a warpgroup whose rows are all past N issues
+//   no products.
+// - swiglu_kernel (f32, and bf16 at other d or F): one block computes a
+//   64 x 64 tile of both g and u with f32 FMAs. The d axis is walked in
+//   steps of 16: 256 threads stage the x tile (transposed) and the two
+//   weight tiles in shared memory as f32, then each thread accumulates a
+//   4 x 4 sub-tile of g and of u (32 FMAs per three 16-byte shared loads).
+//   Ragged N, d and F edges are zero-filled on load and masked on store.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -113,6 +127,77 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+namespace hw = port::hopper;
+
+// A tile: 128 rows x 128 columns of both g and u. Stage i: the x tile at
+// depth 64 i and the wg, wu tiles of columns n0 .. n0 + 127 (two 64-column
+// boxes each). The epilogue takes acc0 = g, acc1 = u of the warpgroup's 64
+// rows and stores g and silu(g) * u in bf16.
+struct FwdGemm {
+  static constexpr int kCols = hw::kBN;
+  const CUtensorMap *x, *wg, *wu;
+  hw::bf16 *h, *g;
+  int n, f, m_blocks, n_blocks, ktiles;
+
+  __device__ __forceinline__ void load(int m0, int n0, int i, hw::bf16* a,
+                                       hw::bf16* b0, hw::bf16* b1,
+                                       uint64_t* bar) const {
+    const int k0 = i * hw::kBK;
+    hw::tma_load_2d(a, x, k0, m0, bar);
+    hw::tma_load_2d(b0, wg, n0, k0, bar);
+    hw::tma_load_2d(b0 + 64 * hw::kBK, wg, n0 + 64, k0, bar);
+    hw::tma_load_2d(b1, wu, n0, k0, bar);
+    hw::tma_load_2d(b1 + 64 * hw::kBK, wu, n0 + 64, k0, bar);
+  }
+
+  __device__ __forceinline__ void prefetch(int, int) const {}
+
+  // Each quad packs its words of four 8-column chunks, transposes them
+  // (hw::quad_transpose) and stores 16 bytes a lane.
+  __device__ __forceinline__ void epilogue(int m0, int n0, int wgp,
+                                           const float (&acc0)[64],
+                                           const float (&acc1)[64]) const {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + 64 * wgp + hw::acc_row(2 * half);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t gw[4], hw4[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = 4 * (4 * m + j) + 2 * half;
+          const float g0 = acc0[e], g1 = acc0[e + 1];
+          gw[j] = port::pack_bf16(g0, g1);
+          hw4[j] = port::pack_bf16(g0 * (1.f / (1.f + expf(-g0))) * acc1[e],
+                                   g1 * (1.f / (1.f + expf(-g1))) *
+                                       acc1[e + 1]);
+        }
+        hw::quad_transpose(gw);
+        hw::quad_transpose(hw4);
+        const int col = n0 + 8 * (4 * m + threadIdx.x % 4);
+        if (row < n && col < f) {     // f % 8 == 0: chunks stay whole
+          const size_t at = static_cast<size_t>(row) * f + col;
+          *reinterpret_cast<uint4*>(g + at) =
+              make_uint4(gw[0], gw[1], gw[2], gw[3]);
+          *reinterpret_cast<uint4*>(h + at) =
+              make_uint4(hw4[0], hw4[1], hw4[2], hw4[3]);
+        }
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(hw::kThreads, 1)
+    swiglu_wgmma_kernel(const __grid_constant__ CUtensorMap mx,
+                        const __grid_constant__ CUtensorMap mg,
+                        const __grid_constant__ CUtensorMap mu,
+                        hw::bf16* __restrict__ h, hw::bf16* __restrict__ g,
+                        int n, int d, int f) {
+  hw::gemm_persistent<true>(
+      FwdGemm{&mx, &mg, &mu, h, g, n, f, (n + hw::kBM - 1) / hw::kBM,
+              (f + hw::kBN - 1) / hw::kBN, (d + hw::kBK - 1) / hw::kBK});
+}
+
 template <typename T>
 int launch(const void* x, const void* wg, const void* wu, void* h, void* g,
            int n, int d, int f, cudaStream_t stream) {
@@ -137,6 +222,24 @@ int swiglu_fwd(const void* x, const void* wg, const void* wu, void* h,
   if (dtype == port::kBF16)
     return launch<__nv_bfloat16>(x, wg, wu, h, g, n, d, f, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 wgmma body: x (n, d); wg, wu (d, f); h, g (n, f); d and f
+// multiples of 8, every pointer 16-byte aligned.
+int swiglu_fwd_wgmma(const void* x, const void* wg, const void* wu, void* h,
+                     void* g, int n, int d, int f, cudaStream_t stream) {
+  if (n < 1 || d < 8 || f < 8 || d % 8 != 0 || f % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mg, mu;
+  int err = hw::tensor_map(&mx, x, n, d, hw::kBM, hw::kBK);
+  if (err == 0) err = hw::tensor_map(&mg, wg, d, f, hw::kBK, 64);
+  if (err == 0) err = hw::tensor_map(&mu, wu, d, f, hw::kBK, 64);
+  if (err != 0) return err;
+  const int tiles =
+      ((f + hw::kBN - 1) / hw::kBN) * ((n + hw::kBM - 1) / hw::kBM);
+  return hw::launch_persistent(swiglu_wgmma_kernel, tiles, stream, mx, mg, mu,
+                          static_cast<hw::bf16*>(h),
+                          static_cast<hw::bf16*>(g), n, d, f);
 }
 
 }  // extern "C"

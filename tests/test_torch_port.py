@@ -307,10 +307,31 @@ def test_cuda_rmsnorm_without_residual_matches_plain(shape, dtype):
                                               scale)[0])
 
 
+# SwiGLU shapes (N, d, F) of the card tests. bf16 takes the wgmma body at
+# all but (5, 100, 72) (d not a multiple of 8: the FMA body); (128, 64,
+# 128) is one 128 x 128 tile one stage deep; (77, 512, 1000) has ragged N
+# and F; (4096, 2048, 6144) is qwen3-1.7b's training call.
+SWIGLU_SHAPES = [(9, 128, 256), (33, 256, 384), (5, 100, 72), (130, 64, 200),
+                 (128, 64, 128), (77, 512, 1000), (4096, 2048, 6144)]
+
+
+@pytest.mark.parametrize("d,F,dtype,body", [
+    (2048, 6144, torch.bfloat16, "wgmma"), (64, 200, torch.bfloat16, "wgmma"),
+    (8, 8, torch.bfloat16, "wgmma"), (100, 72, torch.bfloat16, "fma"),
+    (2048, 6148, torch.bfloat16, "fma"), (2048, 6144, torch.float32, "fma"),
+])
+def test_swiglu_body_follows_widths_and_dtype_only(d, F, dtype, body):
+    """The body is a function of (d, F, dtype): N is not an argument, so a
+    row takes the same body, tiles and sums at every batch size."""
+    import inspect
+    assert list(inspect.signature(SW._body).parameters) == ["d", "F",
+                                                            "dtype"]
+    assert SW._body(d, F, dtype) == body
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", SERVING_DTYPES)
-@pytest.mark.parametrize("shape", [(9, 128, 256), (33, 256, 384),
-                                   (5, 100, 72), (130, 64, 200)])
+@pytest.mark.parametrize("shape", SWIGLU_SHAPES)
 def test_cuda_swiglu_matches_plain(shape, dtype):
     gen = _on_card()
     N, d, F = shape
@@ -679,8 +700,7 @@ def test_cuda_rmsnorm_residual_backward_matches_plain(shape, residual, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", SERVING_DTYPES)
-@pytest.mark.parametrize("shape", [(9, 128, 256), (33, 256, 384),
-                                   (5, 100, 72), (130, 64, 200)])
+@pytest.mark.parametrize("shape", SWIGLU_SHAPES)
 def test_cuda_swiglu_backward_matches_plain(shape, dtype):
     gen = _on_card()
     N, d, F = shape
@@ -697,6 +717,49 @@ def test_cuda_swiglu_backward_matches_plain(shape, dtype):
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
     assert SW.launches == {"swiglu": 0, "swiglu_backward": 1}
+
+
+def _swiglu_inputs(gen, N, d, F, dtype=torch.bfloat16):
+    x = _randn_card(gen, N, d, dtype=dtype)
+    wg, wu = (_randn_card(gen, d, F, dtype=dtype, scale=d ** -0.5)
+              for _ in range(2))
+    dh = _randn_card(gen, N, F, dtype=dtype)
+    return x, wg, wu, tref.swiglu_ref(x, wg, wu)[1], dh
+
+
+def _swiglu_pair(x, wg, wu, g, dh):
+    """(h, g, dx, dg, du) of the forward and backward kernels."""
+    return SW.swiglu(x, wg, wu) + SW.swiglu_backward(x, wg, wu, g, dh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,F", [(2048, 6144), (64, 200), (100, 72)])
+@pytest.mark.parametrize("N,rows", [(4096, (0, 1, 127, 128, 2049, 4095)),
+                                    (8, tuple(range(8)))])
+def test_cuda_swiglu_rows_equal_their_solo_runs(N, rows, d, F):
+    """Batch invariance in bf16: a row's h, g, dx, dg and du are bit-equal
+    whether the row is computed among N or alone."""
+    gen = _on_card()
+    ins = _swiglu_inputs(gen, N, d, F)
+    x, wg, wu, g, dh = ins
+    many = _swiglu_pair(*ins)
+    for i in rows:
+        one = _swiglu_pair(x[i:i + 1].clone(), wg, wu, g[i:i + 1].clone(),
+                           dh[i:i + 1].clone())
+        for name, a, b in zip(("h", "g", "dx", "dg", "du"), many, one):
+            assert torch.equal(a[i:i + 1], b), (name, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("shape", [(4096, 2048, 6144), (77, 512, 1000)])
+def test_cuda_swiglu_pair_repeats_bit_for_bit(shape, dtype):
+    gen = _on_card()
+    ins = _swiglu_inputs(gen, *shape, dtype=dtype)
+    SW.reset_launches()
+    first, again = _swiglu_pair(*ins), _swiglu_pair(*ins)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert SW.launches == {"swiglu": 2, "swiglu_backward": 2}
 
 
 ATTN_TRAIN_CASES = [
@@ -871,6 +934,14 @@ def test_cuda_training_wrappers_reject_what_the_kernels_do_not_take():
         SW.swiglu_backward(x, w, w, g.bfloat16(), g)
     with pytest.raises(ValueError):
         SW.swiglu_backward(x, w, w, g[:, :16], g)
+    # the wgmma body's operands must be 16-byte aligned (TMA base addresses)
+    xb = torch.zeros(1 + 4 * 64, device="cuda",
+                     dtype=torch.bfloat16)[1:].view(4, 64)
+    wb = w.bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        SW.swiglu(xb, wb, wb)
+    with pytest.raises(ValueError, match="aligned"):
+        SW.swiglu_backward(xb, wb, wb, g.bfloat16(), g.bfloat16())
     q = torch.randn(1, 2, 8, 256, device="cuda")
     lse = torch.zeros(1, 2, 8, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
