@@ -9,7 +9,11 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
    print ptxas's registers and spills, and count the HGMMA (wgmma)
    instructions in the SASS of ``swiglu.cu`` and ``swiglu_bwd.cu`` (none
-   fails);
+   fails), and in the SASS of ``flash_decode.cu`` and
+   ``flash_decode_paged.cu`` the split-KV body's LDGSTS (16-byte cp.async
+   copies), cluster barriers (UCGABAR_ARV, UCGABAR_WAIT) and generic stores
+   (ST.E: the stores into rank 0's shared memory; the kernels' global
+   stores are STG) (none of one fails);
 3. each GBN kernel against its plain PyTorch version on the card (f32) at
    the shapes of the ResNet44/F1 training path (B=4096, ghost 128) and at
    ragged shapes, plus a leftover-rows ``gbn_apply`` with live mu/var
@@ -31,7 +35,16 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    BF16_TOL, lse at TOL); swiglu's h and g at 4096 rows: two calls
    bit-equal, and INVARIANT_ROWS bit-equal to their solo runs and to an
    8-row call; device times of kernel, plain version and one library
-   call, and the bound, at phase 7's shapes;
+   call, and the bound, at phase 7's shapes (flash_decode's three each call
+   on the next of DECODE_CACHES caches, whose visible slots together are
+   three times the 50 MB L2, as a generate's layers read theirs from device
+   memory, timed in turn for DECODE_ROUNDS rounds, medians; its time on one
+   cache over and over, L2-warm, is printed beside them); the split-KV
+   decode's edges (``decode_edge_checks``): rows at positions CHUNK - 1,
+   CHUNK, CHUNK + 1 and 2 CHUNK against the plain version (f32 and bf16
+   caches, with offsets and RoPE, with a window), a cache of S = 544
+   against the same contents padded to S = 1024 bit for bit, and the rows
+   of batches of 1, 8 and 16 bit-equal to their solo runs;
 7. full-width qwen3-1.7b ``generate`` in bf16 (random weights from
    SERVE_SEED): B=8 left-padded prompts of width 512 (PROMPT_LENS),
    greedy, 32 new tokens. The launch counters must show 28
@@ -49,10 +62,13 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    tails and an all-trash row, an int8 pool without and with window or
    RoPE, and the engine's full-width bf16 shape at BF16_TOL; at that shape
    its output must equal flash_decode's on the contiguous cache bit for
-   bit. Device times a call of kernel (bf16 and int8 pools), plain version
-   and one library call (``kp[pt]`` gather + SDPA) at four states sampled
-   across phase 10's run, on pools that do not fit in L2, timed in turn
-   for three rounds;
+   bit; ``decode_edge_checks`` for every pool type (f32, bf16, int8 with f32
+   and with bf16 queries; a block table of 34 pages against 64 with the
+   trash page past pos; the chunk edges bit-equal to flash_decode on pools
+   of q's dtype). Device times a call of kernel (bf16 and int8 pools),
+   plain version and one library call (``kp[pt]`` gather + SDPA) at four
+   states sampled across phase 10's run, on pools that do not fit in L2,
+   timed in turn for three rounds;
 10. ContinuousEngine on full-width qwen3-1.7b in bf16 (random weights from
    SERVE_SEED): 16 slots, max_len 1024, a paged pool of 1025 pages of 16,
    greedy, the 32-request Poisson trace ENGINE_TRACE. Every request must
@@ -143,6 +159,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import re
@@ -271,6 +288,11 @@ def smi_line() -> str:
 
 # sources whose bf16 bodies must issue wgmma (HGMMA in their SASS)
 WGMMA_SOURCES = ("swiglu.cu", "swiglu_bwd.cu")
+# the split-KV decode body: 16-byte cp.async copies, the cluster barrier and
+# the stores into rank 0's shared memory (generic ST; global stores are STG)
+DECODE_SOURCES = ("flash_decode.cu", "flash_decode_paged.cu")
+DECODE_SASS = {"LDGSTS": r"LDGSTS\b", "UCGABAR_ARV": r"UCGABAR_ARV\b",
+               "UCGABAR_WAIT": r"UCGABAR_WAIT\b", "ST.E": r"\bST\.E\b"}
 
 
 def phase_build():
@@ -296,6 +318,18 @@ def phase_build():
         log(f"  sass {src}: {n} HGMMA instructions")
         if n == 0:
             raise AssertionError(f"{src}: no HGMMA in its SASS")
+    for src in DECODE_SOURCES:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path(src))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts = {op: len(re.findall(rx, sass))
+                  for op, rx in DECODE_SASS.items()}
+        log(f"  sass {src}: " + ", ".join(f"{n} {op}"
+                                          for op, n in counts.items()))
+        missing = [op for op, n in counts.items() if n == 0]
+        if missing:
+            raise AssertionError(f"{src}: no {missing} in its SASS")
 
 
 def kernel_label(line: str) -> str:
@@ -574,6 +608,11 @@ SERVE_ARCH = "qwen3-1.7b"
 SERVE_SEED = 0
 SERVE_B, SERVE_P, SERVE_NEW = 8, 512, 32
 PROMPT_LENS = (512, 448, 384, 320, 256, 192, 128, 64)
+# caches phase 6 times flash_decode over: 16 x 17.8 MB of bf16 K/V; the
+# kernel reads ~10 MB of each (the visible slots), so a cache comes round
+# again after ~160 MB, three times the card's 50 MB L2; rounds it times
+# them in (medians)
+DECODE_CACHES, DECODE_ROUNDS = 16, 3
 BF16_TOL = 2e-2      # kernel vs plain in bf16: a few bf16 ulps (rtol=atol)
 # rows of a 4096-row SwiGLU call held to their solo runs: both warpgroups
 # of a block, the edges of 128-row blocks, the last row
@@ -648,19 +687,34 @@ def bound(nbytes: float, flops: float, peak: float):
                                        else "operations")
 
 
-def time_row(name, key, kern, plain, library, work, timer=None):
+def time_row(name, key, kern, plain, library, work, timer=None, rounds=1):
     """ms a call of a kernel, its plain version and one library call (a
     yardstick the port never calls; None if it fails), and the bound from
     ``work`` = (bytes, operations, peak). ``timer`` defaults to the
     profiler's device time (``kernel_ms``); ``time_ms`` takes CUDA events
-    around back-to-back calls instead."""
+    around back-to-back calls instead. With ``rounds`` > 1 the three are
+    timed in turn that many times and each time is the median of its
+    rounds (one round of a short call can read several times its usual
+    time)."""
+    import statistics
     timer = timer or kernel_ms
-    row = {"ms": timer(kern), "plain_ms": timer(plain)}
-    try:
-        row["library_ms"] = timer(library)
-    except Exception as e:
-        log(f"  library yardstick of {name} failed: {e!r}")
-        row["library_ms"] = None
+    times = {"ms": [], "plain_ms": [], "library_ms": []}
+    for _ in range(rounds):
+        times["ms"].append(timer(kern))
+        times["plain_ms"].append(timer(plain))
+        if None in times["library_ms"]:
+            continue
+        try:
+            times["library_ms"].append(timer(library))
+        except Exception as e:
+            log(f"  library yardstick of {name} failed: {e!r}")
+            times["library_ms"].append(None)
+    row = {k: (None if None in v else statistics.median(v))
+           for k, v in times.items()}
+    if rounds > 1:
+        log(f"  timing {name} {key}, {rounds} rounds: " + json.dumps(
+            {k: [None if x is None else round(x, 4) for x in v]
+             for k, v in times.items()}))
     row["bound_ms"], row["bound_by"] = bound(*work)
     row["work"] = work
     log(f"  timing {name} {key}: " + json.dumps(
@@ -732,8 +786,9 @@ def phase_serving_kernels():
         e = check_close(f"{name} {label}", got.float(), want.float(), tol)
         out[name]["err"] = max(out[name]["err"], e)
 
-    def timed(name, key, kern, plain, library, work):
-        out[name][key] = time_row(name, key, kern, plain, library, work)
+    def timed(name, key, kern, plain, library, work, rounds=1):
+        out[name][key] = time_row(name, key, kern, plain, library, work,
+                                  rounds=rounds)
 
     # rmsnorm_residual -------------------------------------------------------
     log("kernel check rmsnorm_residual")
@@ -843,6 +898,15 @@ def phase_serving_kernels():
                FD.flash_decode(q, k, v, pos, offsets=off, rope_theta=theta),
                ref.flash_decode_ref(q, k, v, pos, offsets=off,
                                     rope_theta=theta), BF16_TOL)
+    # each layer of a generate reads its own cache from device memory: each
+    # timed call takes the next of DECODE_CACHES caches (more than L2)
+    caches = [(k, v)] + [(randn(B, KV, S, hd), randn(B, KV, S, hd))
+                         for _ in range(DECODE_CACHES - 1)]
+
+    def rotating(fn):
+        turn = itertools.cycle(caches)
+        return lambda: fn(*next(turn))
+
     for pos in (first, last):
         vis = [pos - (P - L) + 1 for L in PROMPT_LENS]
         slots = torch.arange(S, device="cuda")
@@ -851,13 +915,23 @@ def phase_serving_kernels():
         qr = ref.rope_rotate(q, (pos - off.long())[:, None].expand(B, H),
                              theta).bfloat16()[:, :, None]
         timed("flash_decode", pos,
-              lambda: FD.flash_decode(q, k, v, pos, offsets=off,
-                                      rope_theta=theta),
-              lambda: ref.flash_decode_ref(q, k, v, pos, offsets=off,
-                                           rope_theta=theta),
-              lambda: F.scaled_dot_product_attention(
-                  qr, k, v, attn_mask=dmask, enable_gqa=True),
-              decode_work(B, H, KV, hd, vis))
+              rotating(lambda k_, v_, p=pos: FD.flash_decode(
+                  q, k_, v_, p, offsets=off, rope_theta=theta)),
+              rotating(lambda k_, v_, p=pos: ref.flash_decode_ref(
+                  q, k_, v_, p, offsets=off, rope_theta=theta)),
+              rotating(lambda k_, v_, qr=qr, m=dmask:
+                       F.scaled_dot_product_attention(
+                           qr, k_, v_, attn_mask=m, enable_gqa=True)),
+              decode_work(B, H, KV, hd, vis), rounds=DECODE_ROUNDS)
+        warm = [kernel_ms(lambda p=pos: FD.flash_decode(
+            q, k, v, p, offsets=off, rope_theta=theta))
+            for _ in range(DECODE_ROUNDS)]
+        out["flash_decode"][(pos, "warm")] = sorted(warm)[len(warm) // 2]
+        log(f"  timing flash_decode {pos} on one cache over and over "
+            f"(L2-warm, as this phase used to time it): median "
+            f"{sorted(warm)[len(warm) // 2]:.4f} ms a call; rounds "
+            f"{[round(w, 4) for w in warm]}")
+    del caches
     for ring, window, S2 in ((True, 16, 16), (False, 24, 70)):
         q2 = randn(3, 8, 64, dt=torch.float32)
         k2, v2 = (randn(3, 2, S2, 64, dt=torch.float32) for _ in range(2))
@@ -872,6 +946,8 @@ def phase_serving_kernels():
                                         ring=ring, offsets=o3,
                                         rope_theta=1e4), TOL)
     del q, k, v
+    out["flash_decode"]["err"] = max(out["flash_decode"]["err"],
+                                     decode_edge_checks(paged=False))
     torch.cuda.empty_cache()
     return out
 
@@ -1224,6 +1300,124 @@ def phase_paged_kernel():
     (kq, ks), (vq, vs) = ref.quantize_slots(kp), ref.quantize_slots(vp)
     record(f"{label} int8 pool rope bf16 q", BF16_TOL, q, kq, vq, pt, pos,
            k_scale=ks, v_scale=vs, rope_theta=theta)
+    del q, k, v, kp, vp, kq, vq
+    errs.append(decode_edge_checks(paged=True))
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def decode_edge_checks(paged: bool) -> float:
+    """The split-KV decode body's edges at the qwen3-1.7b width (H 16, KV 8,
+    hd 128), for flash_decode (f32 and bf16 caches) or flash_decode_paged
+    (every pool type: f32, bf16, int8 with f32 and with bf16 queries; pages
+    of ENGINE_PAGE through a shuffled block table):
+
+    - rows at positions CHUNK - 1, CHUNK, CHUNK + 1 and 2 CHUNK (CHUNK =
+      ``FD.chunk_slots``), plain, with ragged offsets and RoPE, and with a
+      window of CHUNK: against the plain version (TOL, BF16_TOL); the paged
+      kernel on a pool of q's dtype bit-equal to flash_decode;
+    - a cache of S = 544 slots against the same contents padded to 1024
+      (random slots past every row's pos; paged: a block table of 34 pages
+      against 64, the trash page past pos): equal bits;
+    - the rows of batches of 1, 8 and 16 at their own depths bit-equal to
+      their solo runs.
+
+    Returns the max abs error against the plain versions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ref
+    cfg = get_config(SERVE_ARCH)
+    H, KV, hd, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ENGINE_PAGE
+    gen = torch.Generator(device="cuda").manual_seed(31 + int(paged))
+    name = "flash_decode_paged" if paged else "flash_decode"
+    types = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)]
+    if paged:
+        types += [(torch.float32, "int8"), (torch.bfloat16, "int8")]
+    errs = [0.0]
+
+    def ints(*xs):
+        return torch.tensor(xs, device="cuda", dtype=torch.int32)
+
+    for qdt, pool in types:
+        tol = TOL if qdt == torch.float32 else BF16_TOL
+        itemsize = 1 if pool == "int8" else torch.finfo(qdt).bits // 8
+        n = FD.chunk_slots(hd, itemsize)
+        label = (f"{name} q {str(qdt)[6:]} cache "
+                 f"{pool if pool == 'int8' else str(pool)[6:]}")
+
+        def cache(B, S):
+            q = torch.randn(B, H, hd, generator=gen, device="cuda").to(qdt)
+            k, v = (torch.randn(B, KV, S, hd, generator=gen, device="cuda")
+                    .to(qdt) for _ in range(2))
+            if not paged:
+                return q, (k, v), None, (k, v, {})
+            kp, vp, pt = paged_from_contiguous(k, v, ps, seed=B + S)
+            if pool == "int8":
+                (kp, ks), (vp, vs) = (ref.quantize_slots(kp),
+                                      ref.quantize_slots(vp))
+                return q, (k, v), pt, (kp, vp, dict(k_scale=ks, v_scale=vs))
+            return q, (k, v), pt, (kp, vp, {})
+
+        def run(q, src, pt, pos, plain=False, **kw):
+            a, b_, sc = src
+            if paged:
+                fn = ref.flash_decode_paged_ref if plain \
+                    else FD.flash_decode_paged
+                return fn(q, a, b_, pt, pos, **kw, **sc)
+            fn = ref.flash_decode_ref if plain else FD.flash_decode
+            return fn(q, a, b_, pos, **kw)
+
+        # chunk edges
+        q, (k, v), pt, src = cache(4, -(-(2 * n + 9) // ps) * ps)
+        pos, off = ints(n - 1, n, n + 1, 2 * n), ints(0, n - 1, n, 1)
+        for kw in (dict(), dict(offsets=off, rope_theta=cfg.rope_theta),
+                   dict(window=n)):
+            got = run(q, src, pt, pos, **kw)
+            errs.append(check_close(
+                f"{label} positions {n - 1}..{2 * n} {sorted(kw)}",
+                got.float(), run(q, src, pt, pos, plain=True, **kw).float(),
+                tol))
+            if paged and pool != "int8" and not torch.equal(
+                    got, FD.flash_decode(q, k, v, pos, **kw)):
+                raise AssertionError(f"{label}: differs from flash_decode "
+                                     f"at the chunk edges {sorted(kw)}")
+        # S = 544 against the same contents padded to S = 1024
+        q, (k, v), pt, src = cache(3, 544)
+        pos, off = ints(543, 64, 400), ints(0, 37, 300)
+        if paged:
+            longer = (src, torch.cat([pt, torch.zeros(
+                3, 64 - pt.shape[1], device="cuda", dtype=torch.int32)], 1))
+        else:
+            pad = (lambda x: torch.cat([x, torch.randn(  # noqa: E731
+                3, KV, 1024 - 544, hd, generator=gen, device="cuda")
+                .to(qdt)], 2))
+            longer = ((pad(k), pad(v), {}), None)
+        for kw in (dict(), dict(offsets=off, rope_theta=cfg.rope_theta)):
+            if not torch.equal(run(q, src, pt, pos, **kw),
+                               run(q, longer[0], longer[1], pos, **kw)):
+                raise AssertionError(f"{label}: S = 544 and S = 1024 "
+                                     f"differ {sorted(kw)}")
+        # rows of batches of 1, 8 and 16 against their solo runs
+        for B in (1, 8, 16):
+            q, (k, v), pt, src = cache(B, 640)
+            pos = (torch.arange(B, device="cuda", dtype=torch.int32) * 37
+                   + 60) % 640
+            off = torch.minimum((torch.arange(
+                B, device="cuda", dtype=torch.int32) * 7) % 50, pos)
+            kw = dict(rope_theta=cfg.rope_theta)
+            many = run(q, src, pt, pos, offsets=off, **kw)
+            for r in range(B):
+                one = slice(r, r + 1)
+                src_r = src if paged else (k[one], v[one], {})
+                solo = run(q[one], src_r, None if pt is None else pt[one],
+                           pos[one], offsets=off[one], **kw)
+                if not torch.equal(many[r], solo[0]):
+                    raise AssertionError(f"{label}: row {r} of {B} differs "
+                                         f"from its solo run")
+        log(f"  {label}: chunk of {n} slots; edges within tolerance, S = 544 "
+            f"and 1024 bit-equal, rows of 1, 8, 16 bit-equal to their solo "
+            f"runs")
     torch.cuda.empty_cache()
     return max(errs)
 
@@ -1249,7 +1443,6 @@ def phase_paged_timing(states):
     in the engine, where every layer has a pool of its own. The functions
     are timed in turn for PAGED_ROUNDS rounds; a time is the median of its
     rounds. Returns [{key: median ms}] per state and the rounds' spread."""
-    import itertools
     import statistics
     import torch
     import torch.nn.functional as F

@@ -1,7 +1,9 @@
 // Shared helpers of the port's CUDA kernels: element types, conversions to
 // and from f32, 16-byte vector loads and stores, a block-wide sum, the RoPE
-// rotation, and the sm_80+ tensor-core building blocks the bf16 flash
-// attention kernels use (cp.async, ldmatrix, mma.sync m16n8k16).
+// rotation, the sm_80+ tensor-core building blocks the bf16 flash
+// attention kernels use (cp.async, ldmatrix, mma.sync m16n8k16), and the
+// sm_90 cluster barrier and distributed shared-memory store of the decode
+// kernels.
 //
 // Every kernel takes f32 or bf16 tensors (a dtype code from the wrapper:
 // 0 = float32, 1 = bfloat16) and computes in f32. bf16 values are rounded
@@ -151,6 +153,51 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters (sm_90): a block's rank in its cluster, a barrier
+// over every thread of the cluster (release/acquire: shared-memory writes
+// before it are visible to the cluster's blocks after it), and stores into
+// another block's shared memory (distributed shared memory).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of a barrier that orders no memory: a block arrives when
+// it starts and waits before its first store into another block's shared
+// memory, which is then sure to be running.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (a shared variable of this block) in
+// the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p,
+                                                uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void cluster_store(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
 }
 
 // Four 8x8 b16 matrices from shared memory; lane l gives the address of

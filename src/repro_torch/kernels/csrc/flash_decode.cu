@@ -18,40 +18,44 @@
 // 2 * KV * (pos + 1) * HD elements per row, for 4 FLOPs per element per
 // query head: bytes (at B = 8, KV = 8, S = 544, HD = 128 in bf16, 18 MB).
 //
-// Design (a first, simple kernel; split-KV is later work): the body of
-// flash_decode.cuh, with each slot read from the contiguous cache. One
-// block of 256 threads (8 warps) per (kv head, batch row) holds the G =
-// H / KV query rows of the GQA group in shared memory, so each cached key
-// and value is read once per step; the warps take the visible slots in
-// turn, each with its own online softmax, merged through shared memory at
-// the end. Slots outside [offset, pos] (or outside the window) are never
-// visited unless the cache is a ring, whose slot order is not monotone in
-// position. Only B * KV blocks run (64 on 132 SMs at B = 8, KV = 8).
+// Design: the split-KV body of flash_decode.cuh, where a chunk (32
+// consecutive slots of a bf16 row of 128) is one contiguous run of each of
+// k and v. A cluster of 8 blocks per (kv head, row) -- a grid of (8, KV,
+// B), 512 blocks at B = 8, KV = 8 -- streams the visible chunks with
+// 16-byte cp.async copies, two chunks in flight a block; the blocks store
+// their partial softmaxes into rank 0's shared memory, which merges them
+// in rank order. Chunks outside [offset, pos] (or outside the window) are
+// never touched unless the cache is a ring, whose slot order is not
+// monotone in position (a ring's hidden slots are zero-filled, not read).
 
 #include "flash_decode.cuh"
 
 namespace {
 
+using port::decode::Chunk;
+using port::decode::CL;
 using port::decode::ContiguousSlots;
 using port::decode::MAX_GHD;
+using port::decode::Smem;
 using port::decode::THREADS;
 
 template <typename T, int HD, int G>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o,
                         const int* __restrict__ pos_rows, int pos_scalar,
                         const int* __restrict__ offsets, int H, int KV, int S,
                         int window, int ring, int rope, float log_theta,
                         float scale) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int pos = pos_rows != nullptr ? pos_rows[b] : pos_scalar;
   const int off = offsets != nullptr ? offsets[b] : 0;
   const ContiguousSlots<T> slots{k, v,
                                  (static_cast<size_t>(b) * KV + kvh) * S};
-  port::decode::decode_block<T, HD, G>(q, o, slots, b, kvh, pos, off, H, S,
-                                       window, ring, rope, log_theta, scale);
+  port::decode::decode_cluster<T, T, HD, G>(q, o, slots, b, kvh, pos, off, H,
+                                            S, window, ring, rope, log_theta,
+                                            scale);
 }
 
 template <typename T, int HD, int G>
@@ -62,8 +66,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if constexpr (G * HD > MAX_GHD) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const dim3 grid(KV, B);
-    flash_decode_kernel<T, HD, G><<<grid, THREADS, 0, stream>>>(
+    constexpr size_t smem = Smem<HD, sizeof(T), G, false, false>::BYTES;
+    const auto kernel = flash_decode_kernel<T, HD, G>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(CL, KV, B);
+    kernel<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), pos_rows, pos_scalar,
         offsets, H, KV, S, window, ring, rope, log_theta, scale);
@@ -115,9 +125,31 @@ int dispatch_hd(int hd, int g, const void* q, const void* k, const void* v,
 #undef PORT_DECODE_HD
 }
 
+template <int HD>
+int chunk_slots(int esize) {
+  switch (esize) {
+    case 1: return Chunk<HD, 1>::SLOTS;
+    case 2: return Chunk<HD, 2>::SLOTS;
+    case 4: return Chunk<HD, 4>::SLOTS;
+    default: return 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Slots of the kernels' chunk for rows of hd elements of esize bytes (the
+// wrapper's chunk_slots asks here); 0 for a width they do not take.
+int flash_decode_chunk_slots(int hd, int esize) {
+  switch (hd) {
+    case 32: return chunk_slots<32>(esize);
+    case 64: return chunk_slots<64>(esize);
+    case 128: return chunk_slots<128>(esize);
+    case 256: return chunk_slots<256>(esize);
+    default: return 0;
+  }
+}
 
 // q (B, H, hd); k, v (B, KV, S, hd); o like q; all of `dtype`, contiguous.
 // pos_rows (B,) int32 or null (then every row is at pos_scalar); offsets

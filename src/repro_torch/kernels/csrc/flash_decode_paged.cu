@@ -19,24 +19,33 @@
 // 2 * KV * visible * HD elements (plus 2 * KV * visible f32 scales for
 // int8), for 4 FLOPs per element per query head: bytes.
 //
-// Design (a first, simple kernel; split-KV across more blocks and cp.async
-// or TMA page prefetch are later work): the body of flash_decode.cuh with
-// a slot source that looks each slot's page up in the row's block table.
-// Slots past pos are never read, so block-table entries past pos (the
-// trash page 0 of the serving engine) cost nothing. The slot-to-warp map
-// and the merge order are the contiguous kernel's, so on the same cache
-// contents the output equals flash_decode.cu's bit for bit.
+// Design: the split-KV body of flash_decode.cuh with a slot source that
+// reads a chunk's block-table entries once, before the chunk's copies (one
+// entry a thread, loaded a chunk ahead), and copies each visible slot's
+// HD-element key and value rows from their pages as 16-byte cp.async
+// copies (an int8 row is 16 codes a copy; the f32 scales of 4 slots of
+// one page arrive as one 16-byte copy when the page size is a multiple of
+// 4, else as 4-byte copies a slot). A cluster of 8 blocks per (kv head, row) -- a grid of
+// (8, KV, B), 1,024 blocks for the engine's 16 rows and 8 kv heads -- two
+// chunks in flight a block; the blocks store their partials into rank 0's
+// shared memory, which merges them in rank order. Slots past pos are never
+// read, so block-table entries past pos (the trash page 0 of the serving
+// engine) cost nothing. Chunks, their map to ranks and the merge order are
+// the contiguous kernel's, so on the same cache contents the output equals
+// flash_decode.cu's bit for bit.
 
 #include "flash_decode.cuh"
 
 namespace {
 
+using port::decode::CL;
 using port::decode::MAX_GHD;
 using port::decode::PagedSlots;
+using port::decode::Smem;
 using port::decode::THREADS;
 
 template <typename Q, typename T, int HD, int G>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS)
     flash_decode_paged_kernel(const Q* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
                               const float* __restrict__ ks,
@@ -46,15 +55,19 @@ __global__ void __launch_bounds__(THREADS)
                               const int* __restrict__ offsets, int H, int KV,
                               int NB, int ps, int window, int rope,
                               float log_theta, float scale) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int pos = pos_rows != nullptr ? pos_rows[b] : pos_scalar;
   const int off = offsets != nullptr ? offsets[b] : 0;
-  const PagedSlots<T> slots{
-      k, v, ks, vs, pt + static_cast<size_t>(b) * NB, KV, kvh, ps};
-  port::decode::decode_block<Q, HD, G>(q, o, slots, b, kvh, pos, off, H,
-                                       NB * ps, window, /*ring=*/0, rope,
-                                       log_theta, scale);
+  const bool wide_scales =
+      port::decode::kScaleCopy == 16 && ps % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) &
+       15) == 0;
+  const PagedSlots<T> slots{k, v, ks, vs, pt + static_cast<size_t>(b) * NB,
+                            KV, kvh, ps, wide_scales};
+  port::decode::decode_cluster<Q, T, HD, G>(q, o, slots, b, kvh, pos, off, H,
+                                            NB * ps, window, /*ring=*/0, rope,
+                                            log_theta, scale);
 }
 
 struct Args {
@@ -78,8 +91,15 @@ int launch(const Args& a) {
   if constexpr (G * HD > MAX_GHD) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const dim3 grid(a.KV, a.B);
-    flash_decode_paged_kernel<Q, T, HD, G><<<grid, THREADS, 0, a.stream>>>(
+    constexpr size_t smem =
+        Smem<HD, sizeof(T), G, sizeof(T) == 1, true>::BYTES;
+    const auto kernel = flash_decode_paged_kernel<Q, T, HD, G>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(CL, a.KV, a.B);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
         static_cast<const Q*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.ks, a.vs, a.pt, static_cast<Q*>(a.o),
         a.pos_rows, a.pos_scalar, a.offsets, a.H, a.KV, a.NB, a.ps,

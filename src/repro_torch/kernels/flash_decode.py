@@ -9,19 +9,27 @@ query's RoPE rotation (by ``pos - offset``) fused in. Slot visibility is
 :func:`slot_visibility`, the predicate the kernel evaluates per slot. It
 is bound by the bytes of the visible cache.
 
+Both kernels split a row's slots into chunks of :func:`chunk_slots`
+consecutive logical slots; a cluster of 8 blocks per (kv head, row) takes
+them in turn (rank r the chunks r, r + 8, ...) and rank 0 merges the
+blocks' partial softmaxes in rank order. The chunks depend only
+on ``hd`` and the cache's element size, so a row's output does not depend
+on the batch, on the cache's length past ``pos`` or on the cache's layout.
+
 ``pos`` is an int (every row at one depth), a 0-d tensor or a per-row
 (B,) tensor; a tensor is read by the kernel on the device, never on the
 host. On a CPU tensor the wrapper computes its plain version
 (:func:`repro_torch.kernels.ref.flash_decode_ref`); on a CUDA tensor it
 launches the kernel or raises. The kernel's limits: q, k, v of one dtype
 (f32 or bf16), contiguous, ``hd`` in ``HEAD_DIMS``, a GQA group
-``H // KV`` in ``GROUPS`` with ``(H // KV) * hd <= MAX_GROUP_WIDTH``.
+``H // KV`` in ``GROUPS`` with ``(H // KV) * hd <= MAX_GROUP_WIDTH``, k and v
+16-byte aligned (the kernel copies 16-byte units).
 
 ``flash_decode_paged`` replaces
 ``src/repro/kernels/flash_decode.py:flash_decode_paged_pallas``: the same
 decode against a page pool ``(pages, KV, ps, hd)`` reached through per-row
 block tables ``pt (B, NB)``, bf16/f32 or int8 codes with per-slot f32
-scales (dequantized at the load). It walks the slots as ``flash_decode``
+scales (dequantized in f32). It takes the chunks as ``flash_decode``
 does, so on the same cache contents the two agree bit for bit. Its plain
 version is :func:`repro_torch.kernels.ref.flash_decode_paged_ref`.
 """
@@ -44,9 +52,22 @@ GROUPS = (1, 2, 4, 8, 16)
 MAX_GROUP_WIDTH = 1024
 
 _SIGNATURES = {"flash_decode_fwd": [L.P] * 5 + [L.I, L.P] + [L.I] * 8
-               + [L.F, L.F, L.I, L.P]}
+               + [L.F, L.F, L.I, L.P],
+               "flash_decode_chunk_slots": [L.I, L.I]}
 _PAGED_SIGNATURES = {"flash_decode_paged_fwd": [L.P] * 8 + [L.I, L.P]
                      + [L.I] * 8 + [L.F, L.F, L.I, L.I, L.P]}
+
+
+def chunk_slots(hd: int, itemsize: int) -> int:
+    """Slots of the kernels' chunk for a cache of ``hd``-wide rows of
+    ``itemsize`` bytes: ``Chunk::SLOTS`` of csrc/flash_decode.cuh, asked of
+    the built library (so it needs the CUDA toolkit)."""
+    n = L.bind("flash_decode.cu", _SIGNATURES).flash_decode_chunk_slots(
+        hd, itemsize)
+    if n == 0:
+        raise ValueError(f"hd={hd}, itemsize={itemsize}: the kernels take "
+                         f"hd in {HEAD_DIMS} and 1, 2 or 4 bytes")
+    return n
 
 
 def reset_launches() -> None:
@@ -110,6 +131,8 @@ def flash_decode(q: Tensor, k: Tensor, v: Tensor, pos: Union[int, Tensor],
     L.check("v", v, (B, KV, S, hd), dev, q.dtype)
     _check_group(H, KV, hd)
     L.check_index("S", S)
+    if not L.aligned(k, v):
+        raise ValueError("k and v must be 16-byte aligned")
     pos_rows, pos_scalar, offs, w = _rows(pos, offsets, B, dev, window)
     rope = rope_theta is not None
     log_theta = math.log(rope_theta) if rope else 0.0
@@ -168,6 +191,8 @@ def flash_decode_paged(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
     _check_group(H, KV, hd)
     if ps < 1 or NB < 1:
         raise ValueError(f"page_size={ps} and NB={NB} must be >= 1")
+    if not L.aligned(kp, vp):
+        raise ValueError("kp and vp must be 16-byte aligned")
     L.check_index("NB * page_size", NB * ps)
     pos_rows, pos_scalar, offs, w = _rows(pos, offsets, B, dev, window)
     rope = rope_theta is not None

@@ -441,6 +441,10 @@ def test_cuda_serving_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         FD.flash_decode(torch.randn(1, 2, 128, device="cuda"), kv, kv,
                         torch.tensor([3, 4], device="cuda"))
+    off16 = torch.randn(kv.numel() + 1, device="cuda")[1:].view(kv.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        FD.flash_decode(torch.randn(1, 2, 128, device="cuda"), off16,
+                        off16, 3)
 
 
 @pytest.mark.gpu
@@ -506,6 +510,7 @@ PAGED_CASES = [   # B, H, KV, NB, ps, hd, window, offsets, rope_theta
     (3, 4, 1, 2, 32, 32, None, (0, 5, 40), None),  # ragged left padding
     (3, 16, 8, 9, 16, 128, None, (0, 3, 17), 1e6),  # qwen3 heads, RoPE
     (2, 4, 2, 5, 7, 256, 9, None, 1e4),            # odd page, window, RoPE
+    (16, 16, 8, 64, 16, 128, None, None, 1e6),     # the engine's full width
 ]
 
 
@@ -619,12 +624,172 @@ def test_cuda_flash_decode_paged_rejects_what_the_kernel_does_not_take():
         (ValueError, lambda: FD.flash_decode_paged(
             torch.randn(2, 4, 48, device="cuda"), kp[..., :48].contiguous(),
             vp[..., :48].contiguous(), pt, pos)),
+        (ValueError, lambda: FD.flash_decode_paged(
+            q, *(torch.randn(x.numel() + 1, device="cuda")[1:]
+                 .view(x.shape) for x in (kp, vp)), pt, pos)),
     ]
     FD.reset_launches()
     for err, call in bad:
         with pytest.raises(err):
             call()
     assert FD.launches["flash_decode_paged"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,itemsize,slots", [
+    (32, 2, 64), (64, 2, 64), (128, 2, 32), (256, 2, 16), (32, 4, 64),
+    (128, 4, 16), (256, 4, 8), (128, 1, 64), (256, 1, 32)])
+def test_cuda_chunk_slots_follow_width_and_element_size_only(hd, itemsize,
+                                                             slots):
+    """The kernels' chunk (which the edge tests and chip_smoke take their
+    positions from): 64 slots, fewer where 64 keys would pass 8 KB."""
+    _on_card()
+    assert FD.chunk_slots(hd, itemsize) == slots
+    assert slots * hd * itemsize <= 8192 or slots == 64
+    with pytest.raises(ValueError):
+        FD.chunk_slots(48, itemsize)
+
+
+# The pool types of the paged kernel: (q dtype, pool dtype or "int8").
+POOL_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, "int8"), (torch.bfloat16, "int8")]
+
+
+def _pool(kp, vp, pool):
+    """(kp, vp, scales) of one pool type from a pool of q's dtype."""
+    if pool != "int8":
+        return kp, vp, {}
+    (kq, ks), (vq, vs) = tref.quantize_slots(kp), tref.quantize_slots(vp)
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("qdt,pool", POOL_TYPES)
+def test_cuda_flash_decode_chunk_boundaries_match_plain(qdt, pool, hd):
+    """Rows at positions CHUNK - 1, CHUNK, CHUNK + 1 and 2 CHUNK (the
+    kernels' chunk of csrc/flash_decode.cuh), with and without ragged
+    offsets, a window and RoPE: both kernels against their plain versions
+    (f32 1e-4, bf16 2e-2), and the paged kernel bit-equal to the contiguous
+    one on a pool of q's dtype."""
+    gen = _on_card()
+    itemsize = 1 if pool == "int8" else torch.finfo(qdt).bits // 8
+    n = FD.chunk_slots(hd, itemsize)
+    B, H, KV, ps = 4, 8, 2, 16
+    NB = -(-(2 * n + 9) // ps)
+    q, k, v, _, _ = _paged_inputs(B, H, KV, NB, ps, hd, None, qdt, gen)
+    kp, vp, pt = _paged_from_contiguous(k, v, ps, seed=hd)
+    kq, vq, scales = _pool(kp, vp, pool)
+    pos = torch.tensor([n - 1, n, n + 1, 2 * n], device="cuda",
+                       dtype=torch.int32)
+    off = torch.tensor([0, n - 1, n, 1], device="cuda", dtype=torch.int32)
+    tol = _bf16_tol(qdt)
+    for kw in (dict(), dict(offsets=off, rope_theta=1e4), dict(window=n)):
+        got = FD.flash_decode_paged(q, kq, vq, pt, pos, **kw, **scales)
+        want = tref.flash_decode_paged_ref(q, kq, vq, pt, pos, **kw,
+                                           **scales)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if pool == "int8":
+            continue
+        contiguous = FD.flash_decode(q, k, v, pos, **kw)
+        torch.testing.assert_close(
+            contiguous.float(),
+            tref.flash_decode_ref(q, k, v, pos, **kw).float(), rtol=tol,
+            atol=tol)
+        assert torch.equal(got, contiguous)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt,pool", POOL_TYPES)
+def test_cuda_flash_decode_padding_past_pos_gives_equal_bits(qdt, pool):
+    """A cache of S = 544 slots and the same contents padded to S = 1024
+    (random slots past every row's pos; for the paged kernel, block-table
+    entries past pos on the trash page): equal bits."""
+    gen = _on_card()
+    B, H, KV, hd, ps = 3, 16, 8, 128, 16
+    q, k, v, _, _ = _paged_inputs(B, H, KV, 34, ps, hd, None, qdt, gen)
+    pad = lambda x: torch.cat([x, torch.randn(  # noqa: E731
+        B, KV, 1024 - 544, hd, generator=gen, device="cuda").to(qdt)], 2)
+    kl, vl = pad(k), pad(v)
+    pos = torch.tensor([543, 64, 400], device="cuda", dtype=torch.int32)
+    off = torch.tensor([0, 37, 300], device="cuda", dtype=torch.int32)
+    kp, vp, pt = _paged_from_contiguous(k, v, ps, seed=3)
+    kq, vq, scales = _pool(kp, vp, pool)
+    pt_long = torch.cat([pt, torch.zeros(B, 64 - 34, device="cuda",
+                                         dtype=torch.int32)], 1)
+    for kw in (dict(), dict(offsets=off, rope_theta=1e6)):
+        assert torch.equal(FD.flash_decode_paged(q, kq, vq, pt, pos, **kw,
+                                                 **scales),
+                           FD.flash_decode_paged(q, kq, vq, pt_long, pos,
+                                                 **kw, **scales))
+        if pool != "int8":
+            assert torch.equal(FD.flash_decode(q, k, v, pos, **kw),
+                               FD.flash_decode(q, kl, vl, pos, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [16, 7])
+@pytest.mark.parametrize("qdt", SERVING_DTYPES)
+def test_cuda_flash_decode_paged_ignores_hidden_scales(qdt, ps):
+    """An int8 pool whose scales of the slots a row does not see (before
+    its offset, past its pos, outside its window) are NaN gives the bits of
+    the same pool with finite ones. Pages of 16 take 16-byte scale copies
+    of 4 slots (visible and hidden slots in one copy), pages of 7 a copy a
+    slot."""
+    gen = _on_card()
+    B, H, KV, hd, NB = 3, 8, 2, 64, 12
+    q, k, v, _, _ = _paged_inputs(B, H, KV, NB, ps, hd, None, qdt, gen)
+    kp, vp, pt = _paged_from_contiguous(k, v, ps, seed=ps)
+    kq, vq, scales = _pool(kp, vp, "int8")
+    pos = torch.tensor([NB * ps - 3, 41, 70], device="cuda",
+                       dtype=torch.int32)
+    off = torch.tensor([5, 0, 13], device="cuda", dtype=torch.int32)
+    for kw in (dict(offsets=off, rope_theta=1e4), dict(window=22)):
+        lo = off if "offsets" in kw else torch.clamp(pos - 21, min=0)
+        poisoned = {name: s.clone() for name, s in scales.items()}
+        for b in range(B):
+            hidden = [t for t in range(NB * ps)
+                      if t < int(lo[b]) or t > int(pos[b])]
+            for t in hidden:
+                page = int(pt[b, t // ps])
+                for s in poisoned.values():
+                    s[page, :, t % ps] = float("nan")
+        want = FD.flash_decode_paged(q, kq, vq, pt, pos, **kw, **scales)
+        assert torch.isfinite(want.float()).all()
+        assert torch.equal(
+            FD.flash_decode_paged(q, kq, vq, pt, pos, **kw, **poisoned), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 16])
+@pytest.mark.parametrize("qdt,pool", POOL_TYPES)
+def test_cuda_flash_decode_rows_equal_their_solo_runs(qdt, pool, B):
+    """Each row of a batch of B at its own depth (ragged offsets, RoPE)
+    equals its solo run bit for bit, in both kernels."""
+    gen = _on_card()
+    H, KV, hd, ps, NB = 16, 8, 128, 16, 40
+    q, k, v, _, _ = _paged_inputs(B, H, KV, NB, ps, hd, None, qdt, gen)
+    kp, vp, pt = _paged_from_contiguous(k, v, ps, seed=B)
+    kq, vq, scales = _pool(kp, vp, pool)
+    pos = (torch.arange(B, device="cuda", dtype=torch.int32) * 37 + 60) \
+        % (NB * ps)
+    off = (torch.arange(B, device="cuda", dtype=torch.int32) * 7) % 50
+    off = torch.minimum(off, pos)
+    kw = dict(rope_theta=1e6)
+    paged = FD.flash_decode_paged(q, kq, vq, pt, pos, offsets=off, **kw,
+                                  **scales)
+    contiguous = None if pool == "int8" else FD.flash_decode(
+        q, k, v, pos, offsets=off, **kw)
+    for r in range(B):
+        one = slice(r, r + 1)
+        assert torch.equal(paged[r], FD.flash_decode_paged(
+            q[one], kq, vq, pt[one], pos[one], offsets=off[one], **kw,
+            **scales)[0])
+        if contiguous is not None:
+            assert torch.equal(contiguous[r], FD.flash_decode(
+                q[one], k[one], v[one], pos[one], offsets=off[one],
+                **kw)[0])
 
 
 @pytest.mark.gpu
