@@ -13,12 +13,18 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    ``flash_decode_paged.cu`` the split-KV body's LDGSTS (16-byte cp.async
    copies), cluster barriers (UCGABAR_ARV, UCGABAR_WAIT) and generic stores
    (ST.E: the stores into rank 0's shared memory; the kernels' global
-   stores are STG) (none of one fails);
+   stores are STG) (none of one fails), and in the SASS of ``gbn.cu`` the
+   persistent GBN body's 1-D bulk copies (UBLKCP; none fails);
 3. each GBN kernel against its plain PyTorch version on the card (f32) at
-   the shapes of the ResNet44/F1 training path (B=4096, ghost 128) and at
-   ragged shapes, plus a leftover-rows ``gbn_apply`` with live mu/var
-   cotangents; times of kernel, plain version, ``F.batch_norm`` yardstick
-   and the byte bound at the path's shapes;
+   the shapes of the ResNet44/F1 training path (B=4096, ghost 128), at
+   ragged shapes and at a ghost over the persistent body's budget (the
+   two-pass body), two calls bit-equal, plus a leftover-rows ``gbn_apply``
+   with live mu/var cotangents; at the path's shapes, for each shape the
+   body and plan, CUDA-event and profiler device ms a call, the kernels a
+   call launches (the forward exactly one GBN kernel, the backward at most
+   two, and at most a memset besides: no PyTorch arithmetic, else it
+   fails), the two-pass body's times beside, and the plain version,
+   ``F.batch_norm`` yardstick and byte bound;
 4. ``train_vision`` on RESNET44_CIFAR10 at full width, B=4096, the
    LB+LR+GBN+RA recipe, through the CUDA GBN pair (5 steps; the launch
    counters must show 43 forward + 43 backward GBN calls per step), its
@@ -181,7 +187,8 @@ STEPS = 5
 RESNET_SHAPES = [((32, 131072, 16), 15), ((32, 32768, 32), 14),
                  ((32, 8192, 64), 14)]
 F1_SHAPE = (32, 128, 512)
-RAGGED_SHAPES = [(3, 77, 200), (1, 16, 8), (2, 33, 10)]
+RAGGED_SHAPES = [(3, 77, 200), (1, 16, 8), (2, 33, 10), (7, 1001, 24)]
+TWO_PASS_SHAPE = (2, 2 ** 19, 16)   # a ghost over the persistent budget
 REPLACES = {"gbn_forward": "src/repro/kernels/gbn.py:121",
             "gbn_backward": "src/repro/kernels/gbn.py:167"}
 
@@ -293,6 +300,8 @@ WGMMA_SOURCES = ("swiglu.cu", "swiglu_bwd.cu")
 DECODE_SOURCES = ("flash_decode.cu", "flash_decode_paged.cu")
 DECODE_SASS = {"LDGSTS": r"LDGSTS\b", "UCGABAR_ARV": r"UCGABAR_ARV\b",
                "UCGABAR_WAIT": r"UCGABAR_WAIT\b", "ST.E": r"\bST\.E\b"}
+# the persistent GBN body: 1-D bulk copies (cp.async.bulk) into shared memory
+GBN_SASS = {"UBLKCP": r"\bUBLKCP\b"}
 
 
 def phase_build():
@@ -318,13 +327,13 @@ def phase_build():
         log(f"  sass {src}: {n} HGMMA instructions")
         if n == 0:
             raise AssertionError(f"{src}: no HGMMA in its SASS")
-    for src in DECODE_SOURCES:
+    for src, ops in [(s, DECODE_SASS) for s in DECODE_SOURCES] + [
+            ("gbn.cu", GBN_SASS)]:
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(build.library_path(src))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        counts = {op: len(re.findall(rx, sass))
-                  for op, rx in DECODE_SASS.items()}
+        counts = {op: len(re.findall(rx, sass)) for op, rx in ops.items()}
         log(f"  sass {src}: " + ", ".join(f"{n} {op}"
                                           for op, n in counts.items()))
         missing = [op for op, n in counts.items() if n == 0]
@@ -362,18 +371,62 @@ def gbn_inputs(shape, seed):
     return x, gamma, beta, (randn(G, R, C), randn(G, C), randn(G, C))
 
 
+def plan_line(p) -> str:
+    if p.body == "two_pass":
+        g = p.geometry
+        return (f"two_pass (chunks {g.nchunks} x {g.chunk_rows} rows, "
+                f"{g.threads} threads, vec {g.vec})")
+    return (f"persistent (grid {p.grid} = {p.ngroups} groups x P {p.P}, "
+            f"{p.blocks_per_sm} an SM; slices of {p.slice_rows} rows in "
+            f"{p.nsub} x {p.sub_rows}; ring {p.nslot} slots, "
+            f"{p.smem_bytes} B)")
+
+
+def gbn_call_times(label, fn, gate=None):
+    """CUDA-event and profiler device ms a call of ``fn``, and what one call
+    launches on the device. ``gate`` = the most GBN kernels a call may
+    launch: any other kernel (PyTorch arithmetic) or a second memset
+    fails."""
+    events = time_ms(fn)
+    device, kernels = profile_device_ms(fn, reps=10)
+    if device is None:
+        raise AssertionError(f"{label}: the profiler shows no device time")
+    per_call = {name: n for _, n, name in kernels}
+    gbn = sum(n for name, n in per_call.items() if "gbn_" in name)
+    memsets = sum(n for name, n in per_call.items() if "memset" in
+                  name.lower())
+    other = [name for name in per_call if "gbn_" not in name and
+             "memset" not in name.lower()]
+    log(f"    {label}: events {events:.4f} ms, device {device:.4f} ms a "
+        f"call; {gbn} GBN kernels, {memsets} memsets"
+        + (f", other {other}" if other else ""))
+    if gate is not None and (other or memsets > 1 or not 1 <= gbn <= gate):
+        raise AssertionError(f"{label}: a call launches {per_call}; want 1 "
+                             f"to {gate} GBN kernels, at most one memset "
+                             f"and nothing else")
+    return events, device, gbn + memsets
+
+
 def phase_kernels(rows):
-    """Kernel vs plain at every shape; times at the path's shapes. Fills
-    ``rows[shape] = {...}`` with the measurements."""
+    """Kernel vs plain at every shape, two calls bit-equal; bodies, plans,
+    launches and times at the path's shapes. Fills ``rows[shape] = {...}``
+    with the measurements."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import gbn as K
     from repro_torch.kernels import ref
     errs = {"gbn_forward": 0.0, "gbn_backward": 0.0}
     timed = [s for s, _ in RESNET_SHAPES] + [F1_SHAPE]
-    for i, shape in enumerate(timed + RAGGED_SHAPES):
+    sms = K.sm_count(torch.cuda.current_device())
+    for i, shape in enumerate(timed + RAGGED_SHAPES + [TWO_PASS_SHAPE]):
         G, R, C = shape
-        log(f"kernel check {shape}  geometry {K.geometry(G, R, C)}")
+        pf, pb = (K.plan(G, R, C, sms, backward=b) for b in (False, True))
+        log(f"kernel check {shape} on {sms} SMs\n  forward  {plan_line(pf)}"
+            f"\n  backward {plan_line(pb)}")
+        want = "two_pass" if shape == TWO_PASS_SHAPE else "persistent"
+        if {pf.body, pb.body} != {want}:
+            raise AssertionError(f"{shape}: bodies {pf.body}, {pb.body}; "
+                                 f"want {want}")
         x, gamma, beta, (dy, dmu, dvar) = gbn_inputs(shape, i)
         y, mu, var = K.gbn_forward(x, gamma, beta)
         yr, mur, varr = ref.gbn_ref(x, gamma, beta)
@@ -382,6 +435,9 @@ def phase_kernels(rows):
             errs["gbn_forward"], check_close("forward y", y, yr),
             check_close("forward mu", mu, mur),
             check_close("forward var", var, varr))
+        if not all(a.equal(b) for a, b in zip(
+                (y, mu, var), K.gbn_forward(x, gamma, beta))):
+            raise AssertionError(f"{shape}: two forward calls differ")
         del y, yr
         dx, dg, db = K.gbn_backward(x, gamma, mur, varr, dy, dmu, dvar)
         dxr, dgr, dbr = ref.gbn_backward_ref(x, gamma, mur, varr, dy, dmu,
@@ -391,8 +447,15 @@ def phase_kernels(rows):
             errs["gbn_backward"], check_close("backward dx", dx, dxr),
             check_sum("backward dgamma", dg, dgr),
             check_sum("backward dbeta", db, dbr))
+        if not all(a.equal(b) for a, b in zip(
+                (dx, dg, db),
+                K.gbn_backward(x, gamma, mur, varr, dy, dmu, dvar))):
+            raise AssertionError(f"{shape}: two backward calls differ")
+        log("  two calls bit-equal (forward, backward)")
         del dx, dxr
         if shape not in timed:
+            del x, dy
+            torch.cuda.empty_cache()
             continue
         # yardstick: one library call over the (1, G*C, R) ghost view (the
         # layout copy is made outside the timing)
@@ -401,20 +464,32 @@ def phase_kernels(rows):
         gl, bl = gamma.repeat(G), beta.repeat(G)
         _, smean, sinv = torch.ops.aten.native_batch_norm(
             xl, gl, bl, None, None, True, 0.1, 1e-5)
-        row = {
-            "fwd_ms": time_ms(lambda: K.gbn_forward(x, gamma, beta)),
+        tp = K.two_pass(G, R, C)
+        row = {}
+        for pre, kern, two, gate in (
+                ("fwd", lambda: K.gbn_forward(x, gamma, beta),
+                 lambda: K.forward_with(tp, x, gamma, beta), 1),
+                ("bwd", lambda: K.gbn_backward(x, gamma, mur, varr, dy, dmu,
+                                               dvar),
+                 lambda: K.backward_with(tp, x, gamma, mur, varr, dy, dmu,
+                                         dvar), 2)):
+            (row[f"{pre}_ms"], row[f"{pre}_device_ms"],
+             row[f"{pre}_launches_a_call"]) = gbn_call_times(
+                f"{pre} {pf.body}", kern, gate)
+            (row[f"{pre}_two_pass_ms"], row[f"{pre}_two_pass_device_ms"],
+             row[f"{pre}_two_pass_launches_a_call"]) = gbn_call_times(
+                f"{pre} two_pass", two)
+        row.update({
             "fwd_plain_ms": time_ms(lambda: ref.gbn_ref(x, gamma, beta)),
             "fwd_library_ms": time_ms(lambda: F.batch_norm(
                 xl, None, None, gl, bl, training=True, eps=1e-5)),
-            "bwd_ms": time_ms(lambda: K.gbn_backward(
-                x, gamma, mur, varr, dy, dmu, dvar)),
             "bwd_plain_ms": time_ms(lambda: ref.gbn_backward_ref(
                 x, gamma, mur, varr, dy, dmu, dvar)),
             "bwd_library_ms": time_ms(
                 lambda: torch.ops.aten.native_batch_norm_backward(
                     dyl, xl, gl, None, None, smean, sinv, True, 1e-5,
                     [True, True, True])),
-        }
+        })
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(*fwd_work(*shape))
         row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(*bwd_work(*shape))
         rows[shape] = row
@@ -422,6 +497,12 @@ def phase_kernels(rows):
                                           else v) for k, v in row.items()}))
         del xl, dyl, x, dy
         torch.cuda.empty_cache()
+    for pre in ("fwd", "bwd"):
+        step = {k: sum(rows[s][f"{pre}_{k}"] * n for s, n in RESNET_SHAPES)
+                for k in ("ms", "device_ms", "two_pass_ms",
+                          "two_pass_device_ms", "library_ms")}
+        log(f"  {pre} a ResNet44 step (43 calls): " + json.dumps(
+            {k: round(v, 4) for k, v in step.items()}))
     return errs
 
 

@@ -2,7 +2,8 @@
 // SwiGLU pair): TMA loads of 2-D tiles into shared memory, completing on
 // mbarriers; wgmma (m64n128k16, bf16 in, f32 accumulators) on 128-byte
 // swizzled tiles; setmaxnreg; and one warp-specialised block that runs
-// them as a pipeline.
+// them as a pipeline. The GBN pair (gbn.cu) takes the mbarriers, 1-D bulk
+// copies and the device-scope counters from here.
 //
 // The block (kThreads = 384, one an SM, persistent over output tiles):
 // warpgroups 0 and 1 consume, each owning 64 of a tile's kBM = 128 rows;
@@ -156,6 +157,46 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// `bytes` contiguous bytes from global memory at src into shared memory at
+// dst (both 16-byte aligned, bytes a multiple of 16); they complete on
+// `bar`. A 1-D bulk copy: no tensor map, one instruction.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device-scope counters: blocks of one grid waiting on each other (the
+// grid must be co-resident: a cooperative launch)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
 // Asks TMA to bring the box of `map` at (c0, c1) into L2, without waiting.

@@ -215,27 +215,95 @@ def _cuda_inputs(shape, seed):
             (randn(G, R, C), randn(G, C), randn(G, C)))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 77, 200), (1, 16, 8), (2, 33, 10),
-                                   (4, 300, 96), (32, 8192, 64)])
-def test_cuda_kernels_match_plain(shape):
-    """The CUDA pair against its plain version on the card (f32, 1e-4;
-    dgamma/dbeta relative to their largest entry: they sum G*R rows in
-    another order)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    x, gamma, beta, (dy, dmu, dvar) = _cuda_inputs(shape, sum(shape))
-    K.reset_launches()
-    y, mu, var = K.gbn_forward(x, gamma, beta)
+# the four ResNet44/F1 path shapes (B=4096, ghost 128), ragged shapes
+# (R not a multiple of P or of the slice rows; C not a multiple of 4), and
+# (2, 2**19, 16), a ghost over the persistent body's budget (two-pass body)
+GBN_CARD_SHAPES = [(3, 77, 200), (1, 16, 8), (2, 33, 10), (4, 300, 96),
+                   (32, 8192, 64), (32, 131072, 16), (32, 32768, 32),
+                   (32, 128, 512), (7, 1001, 24), (5, 263, 12),
+                   (2, 2 ** 19, 16)]
+
+
+def _gbn_check(x, gamma, beta, dy, dmu, dvar, fwd, bwd):
+    """fwd/bwd (the wrappers, or one body) against the plain versions at
+    1e-4 (dgamma/dbeta relative to their largest entry: they sum G*R rows
+    in another order); returns the outputs."""
+    y, mu, var = fwd(x, gamma, beta)
     for a, b in zip((y, mu, var), tref.gbn_ref(x, gamma, beta)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    dx, dg, db = K.gbn_backward(x, gamma, mu, var, dy, dmu, dvar)
+    dx, dg, db = bwd(x, gamma, mu, var, dy, dmu, dvar)
     rdx, rdg, rdb = tref.gbn_backward_ref(x, gamma, mu, var, dy, dmu, dvar)
     torch.testing.assert_close(dx, rdx, rtol=1e-4, atol=1e-4)
     for a, b in ((dg, rdg), (db, rdb)):
         assert float((a - b).abs().max()) <= 1e-4 * max(
             1.0, float(b.abs().max()))
+    return y, mu, var, dx, dg, db
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GBN_CARD_SHAPES)
+def test_cuda_kernels_match_plain(shape):
+    """The CUDA pair against its plain version on the card, through the
+    body the plan picks, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, gamma, beta, (dy, dmu, dvar) = _cuda_inputs(shape, sum(shape))
+    K.reset_launches()
+    _gbn_check(x, gamma, beta, dy, dmu, dvar, K.gbn_forward, K.gbn_backward)
     assert K.launches == {"gbn_forward": 1, "gbn_backward": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GBN_CARD_SHAPES)
+def test_cuda_gbn_bodies_match_plain_and_repeat_bit_for_bit(shape):
+    """Both bodies (the persistent one also under other constants) against
+    the plain versions where each takes the shape; two calls of a body on
+    the same inputs give the same bits; the plan picks the persistent body
+    on the path's shapes and the two-pass body past the budget."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    G, R, C = shape
+    sms = K.sm_count(torch.cuda.current_device())
+    plans = {b: K.plan(G, R, C, sms, backward=b) for b in (False, True)}
+    want = "two_pass" if R == 2 ** 19 else "persistent"
+    assert {p.body for p in plans.values()} == {want}
+    x, gamma, beta, (dy, dmu, dvar) = _cuda_inputs(shape, 3 * sum(shape))
+    # other constants: two blocks an SM, slices of a third of a ring
+    other = {b: K.plan(G, R, C, sms, backward=b, blocks_per_sm=2, depth=3)
+             for b in (False, True)}
+    for pf, pb in ((plans[False], plans[True]),
+                   (other[False], other[True]),
+                   (K.two_pass(G, R, C), K.two_pass(G, R, C))):
+        def fwd(*a):
+            return K.forward_with(pf, *a)
+
+        def bwd(*a):
+            return K.backward_with(pb, *a)
+        first = _gbn_check(x, gamma, beta, dy, dmu, dvar, fwd, bwd)
+        again = fwd(x, gamma, beta) + bwd(x, gamma, *first[1:3], dy, dmu,
+                                         dvar)
+        assert all(a.equal(b) for a, b in zip(first, again)), pf.body
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 77, 200), (2, 33, 10), (7, 1001, 24)])
+def test_cuda_gbn_unaligned_inputs_match_plain(shape):
+    """Views that start 4 and 12 bytes past a 16-byte boundary take the
+    one-channel accesses, and the persistent body copies each sub-chunk's
+    unaligned head and tail itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, gamma, beta, (dy, dmu, dvar) = _cuda_inputs(shape, 5)
+
+    def shifted(t, k):
+        buf = torch.empty(t.numel() + k, device="cuda")
+        buf[k:] = t.flatten()
+        return buf[k:].view(t.shape)
+    xu, dyu = shifted(x, 1), shifted(dy, 3)
+    assert K.plan(*shape, K.sm_count(torch.cuda.current_device()),
+                  backward=True, aligned=False).body == "persistent"
+    _gbn_check(xu, gamma, beta, dyu, dmu, dvar, K.gbn_forward,
+               K.gbn_backward)
 
 
 @pytest.mark.gpu
@@ -249,6 +317,12 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         K.gbn_forward(x.transpose(1, 2), gamma, beta)
     with pytest.raises(ValueError):
         K.gbn_forward(x, gamma.cpu(), beta)
+    # a plan of 16-byte accesses on a misaligned view
+    xu = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    p = K.plan(*x.shape, K.sm_count(torch.cuda.current_device()),
+               backward=False)
+    with pytest.raises(ValueError):
+        K.forward_with(p, xu, gamma, beta)
 
 
 def _on_card():
