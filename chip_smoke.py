@@ -14,7 +14,9 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    copies), cluster barriers (UCGABAR_ARV, UCGABAR_WAIT) and generic stores
    (ST.E: the stores into rank 0's shared memory; the kernels' global
    stores are STG) (none of one fails), and in the SASS of ``gbn.cu`` the
-   persistent GBN body's 1-D bulk copies (UBLKCP; none fails);
+   persistent GBN body's 1-D bulk copies (UBLKCP; none fails), and in the
+   SASS of ``mamba_scan.cu`` the Mamba pair's copies ahead (UTMALDG, TMA
+   box loads; none fails);
 3. each GBN kernel against its plain PyTorch version on the card (f32) at
    the shapes of the ResNet44/F1 training path (B=4096, ghost 128), at
    ragged shapes and at a ghost over the persistent body's budget (the
@@ -124,12 +126,18 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    loss within LOSS_TOL, parameters within TOL;
 15. the Mamba chunk-scan kernels (mamba_chunk, B10; mamba_chunk_backward,
    B11) against their plain versions on the card: the reference tests'
-   shapes, a ragged chunk, a d_inner of 100 and the full-width
-   (8, 256, 8192, 16) of phases 16 and 17, f32 at TOL and bf16 inputs at
-   BF16_TOL, a non-zero h0 and live cotangents on both outputs; the
-   backward repeats bit for bit, dt = 0 steps pass the state bit for bit,
-   two chained chunks equal one scan, the autograd Function's gradients
-   equal plain autograd; times (CUDA events) of kernel and plain version
+   shapes, a ragged chunk, a d_inner of 100, d_state 5, a 2048-step chunk
+   (the backward's checkpoints in its device scratch), the full-width
+   (8, 256, 8192, 16) of phases 16 and 17 and a solo row of it, f32 at TOL
+   and bf16 inputs at BF16_TOL, a non-zero h0 and live cotangents on both
+   outputs; each shape's plans; two calls of each kernel bit-equal, dt = 0
+   steps pass the state bit for bit, two chained chunks equal one scan, the
+   autograd Function's gradients equal plain autograd; at the full-width
+   shape and its solo row, each wrapper's plan, CUDA-event and profiler
+   device ms a call and the kernels a call launches, from
+   ``scripts/mamba_times.py`` in a process of its own (B10 exactly one, B11
+   exactly two and the dA sum, else it fails) beside the baseline of the
+   first kernels (MAMBA_BASELINE); times (CUDA events) of the plain version
    and the bound (bytes, or one exp a (t, channel, state) at the SFU rate);
 16. full-width falcon-mamba-7b ``generate`` in bf16 (64 layers, random
    weights from SERVE_SEED), the prompts of phase 7: exactly 128
@@ -302,6 +310,8 @@ DECODE_SASS = {"LDGSTS": r"LDGSTS\b", "UCGABAR_ARV": r"UCGABAR_ARV\b",
                "UCGABAR_WAIT": r"UCGABAR_WAIT\b", "ST.E": r"\bST\.E\b"}
 # the persistent GBN body: 1-D bulk copies (cp.async.bulk) into shared memory
 GBN_SASS = {"UBLKCP": r"\bUBLKCP\b"}
+# the Mamba pair's inputs copied in ahead: TMA box loads
+MAMBA_SASS = {"UTMALDG": r"\bUTMALDG\b"}
 
 
 def phase_build():
@@ -328,7 +338,7 @@ def phase_build():
         if n == 0:
             raise AssertionError(f"{src}: no HGMMA in its SASS")
     for src, ops in [(s, DECODE_SASS) for s in DECODE_SOURCES] + [
-            ("gbn.cu", GBN_SASS)]:
+            ("gbn.cu", GBN_SASS), ("mamba_scan.cu", MAMBA_SASS)]:
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(build.library_path(src))],
                               capture_output=True, text=True, timeout=300,
@@ -726,33 +736,40 @@ FLASH_EDGES = [((1, 2, 2, 17, 32), True, None, None),
 
 
 def profile_device_ms(fn, reps: int = 10, warm: bool = True,
-                      host: bool = True):
+                      host: bool = True, tries: int = 3):
     """Device time per call of everything ``fn`` launches (torch.profiler,
     after one warm call unless ``warm`` is off; ``host=False`` records the
     device's activity only), and the kernels by name: (ms, calls, name) per
-    call. None when the profiler shows no device time."""
+    call. A window that comes back with no device event at all (as one
+    has now and then on the card, early and late in a run) holds no
+    reading and is profiled again, at most ``tries`` times in all; None
+    when none shows device time. A window with some events is taken as it
+    is: a kernel whose events it lost shows fewer calls a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
-    with profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # the raw device events, summed by name (a whole engine run holds
-    # ~10^6 events, too many to parse into the profiler's event tree)
-    by_name = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type().name == "CUDA" and \
-                not getattr(ev, "is_user_annotation", lambda: False)():
-            t, n = by_name.get(ev.name(), (0, 0))
-            by_name[ev.name()] = (t + ev.duration_ns(), n + 1)
-    kernels = [(t / 1e6 / reps, n // reps, name)
-               for name, (t, n) in by_name.items() if t]
-    total = sum(k[0] for k in kernels)
-    return (total if total > 0 else None), kernels
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # the raw device events, summed by name (a whole engine run holds
+        # ~10^6 events, too many to parse into the profiler's event tree)
+        by_name = {}
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type().name == "CUDA" and \
+                    not getattr(ev, "is_user_annotation", lambda: False)():
+                t, n = by_name.get(ev.name(), (0, 0))
+                by_name[ev.name()] = (t + ev.duration_ns(), n + 1)
+        kernels = [(t / 1e6 / reps, n // reps, name)
+                   for name, (t, n) in by_name.items() if t]
+        total = sum(k[0] for k in kernels)
+        if total > 0:
+            return total, kernels
+    return None, kernels
 
 
 def kernel_ms(fn, reps: int = 10) -> float:
@@ -1807,7 +1824,8 @@ def phase_engine(params):
                                    **kw)
             reset_serving_launches()
             busy, kernels = profile_device_ms(lambda: eng.run(trace),
-                                              reps=1, warm=False, host=False)
+                                              reps=1, warm=False, host=False,
+                                              tries=1)
             fam, calls = {}, {}
             for t, count, name in kernels:
                 fam[family(name)] = fam.get(family(name), 0.0) + t
@@ -2662,7 +2680,18 @@ MAMBA_TRAIN_LAYERS = 16      # full width, depth cut from 64 to fit one card
 # instruction throughput), 132 SMs, the H100 SXM's 1,980 MHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 MAMBA_SHAPES = [(1, 8, 128, 8), (2, 16, 256, 16), (2, 32, 512, 16),
-                (2, 13, 128, 8), (2, 16, 100, 16)]
+                (2, 13, 128, 8), (2, 16, 100, 16), (3, 300, 200, 5),
+                (1, 2048, 96, 16)]
+# the first kernels (one thread a channel, before the redesign of several
+# states a thread) at the timed shapes, by scripts/mamba_times.py on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): events ms, device ms and kernels
+# a call
+MAMBA_BASELINE = {
+    (8, 256, 8192, 16): {"mamba_chunk": (0.2675, 0.2621, 1),
+                         "mamba_chunk_backward": (2.0825, 2.0767, 3)},
+    (1, 256, 8192, 16): {"mamba_chunk": (0.1240, 0.1182, 1),
+                         "mamba_chunk_backward": (0.8978, 0.9016, 3)},
+}
 MAMBA_KERNELS = {
     # name: (TPU kernel it replaces, profiler family, kernels a call)
     "mamba_chunk": ("src/repro/kernels/mamba_scan.py:60", "mamba_chunk_fwd",
@@ -2756,35 +2785,131 @@ def mamba_da_f64(ins, dy, dhl, kern_da, plain_da):
         f"|dA| {float(da.abs().max()):.4g}")
 
 
+def mamba_plan_line(p) -> str:
+    return (f"grid {p.grid} x {p.threads} threads ({p.channels} channels, "
+            f"{p.q} of {p.DS} states a thread), {p.nseg} x {p.steps} steps, "
+            f"ring {p.stages}" + (f", checkpoints in {p.ckpt}" if p.backward
+                                  else "") + f", {p.smem_bytes} B")
+
+
+def mamba_call_times():
+    """Events and profiler device ms a call of B10 and B11 and the kernels a
+    call launches, at the full-width shape and its solo row, from
+    ``scripts/mamba_times.py`` in a process of its own: one profiler window
+    a wrapper, taken as it is (late in this run the profiler has dropped
+    the long backward kernel's events from whole windows). {(shape,
+    wrapper): row}."""
+    r = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                            "mamba_times.py")],
+                       capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if r.returncode != 0:
+        raise AssertionError(f"scripts/mamba_times.py exited {r.returncode}"
+                             f"\n{r.stdout[-4000:]}{r.stderr[-4000:]}")
+    rows = {}
+    for line in r.stdout.splitlines():
+        if line.startswith("{") and '"wrapper"' in line:
+            d = json.loads(line)
+            rows[(tuple(d["shape"]), d["wrapper"])] = d
+    return rows
+
+
+def mamba_call_kernels(name, row):
+    """Fails unless a call of B10 launches exactly its one kernel and a call
+    of B11 exactly its two kernels and the dA sum (one reduction), each
+    once: a window that lost a kernel's events fails too."""
+    per_call = {k["name"]: k["n"] for k in row["kernels"]}
+    main = MAMBA_KERNELS[name][1]
+    mamba = {n: k for n, k in per_call.items() if "mamba_" in n}
+    other = {n: k for n, k in per_call.items() if "mamba_" not in n}
+    if name == "mamba_chunk":
+        ok = list(mamba.values()) == [1] and not other
+    else:
+        ok = sorted(mamba.values()) == [1, 1] and list(other.values()) == [1]
+        ok = ok and all("reduce" in n for n in other) and any(
+            "mamba_dbc_reduce_kernel" in n for n in mamba)
+    ok = ok and any(main in n for n in mamba) and row["device_ms"]
+    if not ok:
+        raise AssertionError(f"{name}: a call launches {per_call} (device "
+                             f"{row['device_ms']} ms)")
+    return sum(per_call.values())
+
+
 def phase_mamba_kernels():
     """Phase 15: B10 (mamba_chunk) and B11 (mamba_chunk_backward) against
     their plain versions on the card, at the reference tests' shapes, a
-    ragged chunk (c=13), a d_inner of 100 and the full-width (8, 256, 8192,
-    16) of phases 16 and 17: f32 at TOL, bf16 inputs at BF16_TOL (the
-    forward computes in f32 from the same values and is held to TOL), a
-    non-zero h0 and live cotangents on both outputs. The backward repeats
-    bit for bit; dt = 0 steps pass the state bit for bit (a left-padded
-    row equals its unpadded run); two chained chunks equal one scan; the
-    autograd Function's gradients equal plain autograd through the plain
-    forward. Device times (CUDA events) of kernel and plain version at the
-    full-width f32 shape, and the bound. Returns {name: {"err", "ms",
-    "plain_ms", "work"}}; err is the largest f32 error."""
+    ragged chunk (c=13), a d_inner of 100 and of 200 with d_state 5, a
+    2048-step chunk (the backward's checkpoints in its device scratch), the
+    full-width (8, 256, 8192, 16) of phases 16 and 17 and its solo row: f32
+    at TOL, bf16 inputs at BF16_TOL (the forward computes in f32 from the
+    same values and is held to TOL), a non-zero h0 and live cotangents on
+    both outputs. Two calls of each kernel are bit-equal; dt = 0 steps pass
+    the state bit for bit (a left-padded row equals its unpadded run); two
+    chained chunks equal one scan; the autograd Function's gradients equal
+    plain autograd through the plain forward. At the full-width shape and
+    its solo row: each wrapper's plan, CUDA-event and profiler device ms a
+    call and the kernels a call (mamba_call_times; gated), beside
+    MAMBA_BASELINE; the plain
+    version's time and the bound at the full-width f32 shape. Returns
+    {name: {"err", "ms", "device_ms", "plain_ms", "work"}}; err is the
+    largest f32 error."""
     import torch
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(15)
     full = mamba_full_shape()
+    solo = (1,) + tuple(full[1:])
     out = {k: {"err": 0.0} for k in MAMBA_KERNELS}
     names = ("dxc", "ddt", "dB", "dC", "dA", "dh0")
-    log("mamba kernels vs plain: f32 at TOL, bf16 inputs at BF16_TOL")
-    for shape in MAMBA_SHAPES + [full]:
+    log(f"mamba kernels vs plain: f32 at TOL, bf16 inputs at BF16_TOL; "
+        f"built constants {MS.built_constants()}")
+    # per call at the full-width f32 shape of the model path and its solo
+    # row: CUDA events, profiler device time, kernels a call (from a process
+    # of its own); the plain version and the bound at the full-width shape
+    times = mamba_call_times()
+    for shape in (full, solo):
+        for name in MAMBA_KERNELS:
+            backward = name != "mamba_chunk"
+            p = MS.plan(*shape, backward=backward)
+            t = times[(shape, name)]
+            events, device = t["events_ms"], t["device_ms"]
+            n = mamba_call_kernels(name, t)
+            base = MAMBA_BASELINE.get(shape, {}).get(name)
+            work = mamba_work(*shape, backward=backward)
+            bms, by = mamba_bound(*work)
+            log(f"  timing {name} {shape} f32: events {events:.4f} ms, "
+                f"device {device:.4f} ms a call, {n} kernels a call"
+                + (f" (first kernels: events {base[0]:.4f}, device "
+                   f"{base[1]:.4f}, {base[2]} kernels)" if base else "")
+                + f"; bound {bms:.4f} ms by {by} ({work[0] / 1e6:.1f} MB, "
+                f"{work[1] / 1e6:.1f} M exps); plan {mamba_plan_line(p)}")
+            if shape == full:
+                out[name].update(ms=events, device_ms=device, work=work)
+    ins, dy, dhl = mamba_inputs(gen, *full, torch.float32)
+    for name, plain, reps in (
+            ("mamba_chunk", lambda: ref.mamba_chunk_ref(*ins), 3),
+            ("mamba_chunk_backward",
+             lambda: ref.mamba_chunk_backward_ref(*ins, dy, dhl), 2)):
+        out[name]["plain_ms"] = time_ms(plain, reps)
+        log(f"  timing {name} {full} f32 plain version: "
+            f"{out[name]['plain_ms']:.3f} ms a call")
+    del ins, dy, dhl
+    torch.cuda.empty_cache()
+    bodies = set()
+    for shape in MAMBA_SHAPES + [full, solo]:
+        pf, pb = (MS.plan(*shape, backward=b) for b in (False, True))
+        bodies.add(pb.ckpt)
+        log(f"  {shape} forward {mamba_plan_line(pf)}\n  {shape} backward "
+            f"{mamba_plan_line(pb)}")
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
             label = f"{shape} {'f32' if f32 else 'bf16'}"
             ins, dy, dhl = mamba_inputs(gen, *shape, dtype)
+            fwd = MS.mamba_chunk(*ins)
             e_f = worst_close(f"mamba_chunk {label}", zip(
-                ("y", "h_last"), MS.mamba_chunk(*ins),
-                ref.mamba_chunk_ref(*ins)), TOL)
+                ("y", "h_last"), fwd, ref.mamba_chunk_ref(*ins)), TOL)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    MS.mamba_chunk(*ins), fwd)):
+                raise AssertionError(f"forward {label}: two calls differ")
             got = MS.mamba_chunk_backward(*ins, dy, dhl)
             want = ref.mamba_chunk_backward_ref(*ins, dy, dhl)
             for g, w in zip(got, want):
@@ -2807,12 +2932,14 @@ def phase_mamba_kernels():
                                                 e_f)
                 out["mamba_chunk_backward"]["err"] = max(
                     out["mamba_chunk_backward"]["err"], e_b)
-            if shape == full:
-                again = MS.mamba_chunk_backward(*ins, dy, dhl)
-                if not all(torch.equal(a, b) for a, b in zip(again, got)):
-                    raise AssertionError("the backward does not repeat")
-            del ins, dy, dhl, got, want
-    log("  the backward repeats bit for bit at the full-width shape")
+            again = MS.mamba_chunk_backward(*ins, dy, dhl)
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                raise AssertionError(f"backward {label}: two calls differ")
+            del ins, dy, dhl, got, want, again, fwd
+    log("  two calls of each kernel bit-equal at every shape")
+    if not {"smem", "scratch"} <= bodies:
+        raise AssertionError(f"the backward's checkpoints lived only in "
+                             f"{bodies}")
 
     # dt = 0 steps (left pads) pass the state bit for bit
     ins, _, _ = mamba_inputs(gen, *full, torch.float32)
@@ -2847,24 +2974,6 @@ def phase_mamba_kernels():
     worst_close("autograd Function vs plain autograd", zip(
         names, *grads), TOL)
 
-    # times at the full-width f32 shape of the model path (CUDA events)
-    ins, dy, dhl = mamba_inputs(gen, *full, torch.float32)
-    for name, kern, plain, reps in (
-            ("mamba_chunk", lambda: MS.mamba_chunk(*ins),
-             lambda: ref.mamba_chunk_ref(*ins), 3),
-            ("mamba_chunk_backward",
-             lambda: MS.mamba_chunk_backward(*ins, dy, dhl),
-             lambda: ref.mamba_chunk_backward_ref(*ins, dy, dhl), 2)):
-        row = out[name]
-        row["ms"], row["plain_ms"] = time_ms(kern), time_ms(plain, reps)
-        row["work"] = mamba_work(*full, backward=name != "mamba_chunk")
-        bms, by = mamba_bound(*row["work"])
-        log(f"  timing {name} {full} f32: {row['ms']:.4f} ms a call (plain "
-            f"{row['plain_ms']:.3f}); bound {bms:.4f} ms by {by} "
-            f"({row['work'][0] / 1e6:.1f} MB, {row['work'][1] / 1e6:.1f} M "
-            f"exps)")
-    del ins, dy, dhl
-    torch.cuda.empty_cache()
     return out
 
 

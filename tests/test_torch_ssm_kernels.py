@@ -232,5 +232,10 @@ def test_wrappers_check_the_kernels_limits():
     with pytest.raises(ValueError, match="d_state"):
         MS._check(xc, dt, big, big, torch.zeros(64, 17),
                   torch.zeros(2, 64, 17))
-    assert MS.bwd_tiles(8192, 16) == 64 and MS.bwd_tiles(512, 8) == 2
-    assert MS.bwd_tiles(100, 16) == 1
+    # a backward chunk past MAX_BWD_CHUNK (the forward takes it), a batch
+    # past MAX_BATCH
+    with pytest.raises(ValueError, match="backward"):
+        MS.check_shape(2, MS.MAX_BWD_CHUNK + 1, 64, 16, backward=True)
+    MS.check_shape(2, MS.MAX_BWD_CHUNK + 1, 64, 16, backward=False)
+    with pytest.raises(ValueError, match="batch"):
+        MS.check_shape(MS.MAX_BATCH + 1, 8, 64, 16, backward=False)
