@@ -5,7 +5,8 @@
 
 Phases (any failure exits nonzero and prints no ``ok`` line):
 
-1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32;
+1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions, TF32,
+   cuDNN's deterministic algorithms;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
    print ptxas's registers and spills, and count the HGMMA (wgmma)
    instructions in the SASS of ``swiglu.cu`` and ``swiglu_bwd.cu`` (none
@@ -154,7 +155,27 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    match the counters;
 18. reduced falcon-mamba in f32, card (kernels) against CPU (plain
    versions): ragged greedy tokens equal, prefill logits within TOL, one
-   train step's loss within LOSS_TOL and parameters within TOL.
+   train step's loss within LOSS_TOL and parameters within TOL;
+19. the paper's sweeps (slice 6): ``generalization_gap(steps=48,
+   large_batch=4096, small_batch=128, ghost=128)`` on RESNET44_CIFAR10 at
+   full width with ``use_kernels=True`` and SWEEP_DATA, evaluating every 16
+   steps, through ``run_sweep(checkpoint_every=16)`` under an ``obs`` whose
+   spans read the launch counters: five records, their Table-1 view, and
+   each run's wall_s, steps and median ms a step. B1 and B2 must launch
+   exactly 43 + 43 a step in the two +GBN columns and none in the other
+   three, none in an evaluation and none outside the steps; each record's
+   steps must be its regime's and every accuracy finite. The
+   LB+LR+GBN+RA run killed at its step-16 evaluation and run again from
+   its checkpoint must give a record equal to the sweep's in every field
+   but ``wall_s``; the sweep run again must skip all five runs and run no
+   step; then the step time and a profiled step of SB (B=128) and LB
+   (B=4096), as in phase 4;
+20. ``lm_smoke(steps=8)`` through the runner for reduced qwen3-1.7b and
+   falcon-mamba-7b in f32 (``use_kernels=True``, two methods each,
+   checkpoints every 4 steps): every step must launch exactly the train
+   step's kernels, every evaluation the forward ones once per holdout
+   chunk; the qwen3 LB+LR+NOISE run killed at its step-4 evaluation and
+   resumed must equal its record but for ``wall_s``.
 
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, with a
@@ -179,6 +200,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -595,8 +617,8 @@ def phase_step_time(cfg_name, cfg, data, lb, regime):
     params, state = init(0, cfg, "cuda")
     opt = sgd.init(params)
     step = make_vision_train_step(apply, cfg, lb, regime, use_kernels=True)
-    x = torch.as_tensor(data.x_train[:BATCH], device="cuda")
-    y = torch.as_tensor(data.y_train[:BATCH], device="cuda").long()
+    x = torch.as_tensor(data.x_train[:lb.batch_size], device="cuda")
+    y = torch.as_tensor(data.y_train[:lb.batch_size], device="cuda").long()
     times = []
     for i in range(4):
         torch.cuda.synchronize()
@@ -3329,6 +3351,337 @@ def mamba_rows(kern, serve, train):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the paper's sweeps (experiments runner, run-state checkpoints,
+# obs hooks)
+# ---------------------------------------------------------------------------
+
+SWEEP_STEPS, SWEEP_EVERY = 48, 16
+SWEEP_DATA = dict(seed=7, n_train=8192, n_test=1024, input_shape=(32, 32, 3),
+                  n_classes=10, label_noise=0.05)
+LM_SMOKE_STEPS, LM_SMOKE_EVERY = 8, 4
+LM_SMOKE_ARCHS = ("qwen3-1.7b", "falcon-mamba-7b")
+
+
+class Killed(Exception):
+    """Raised by a ``log_fn`` to kill a run at a chosen evaluation."""
+
+
+def launch_counts():
+    """Every kernel's launch counter, the GBN pair's included."""
+    from repro_torch.kernels import gbn as K
+    return {**K.launches, **all_launches()}
+
+
+def counting_obs():
+    """An ``Observability`` whose spans also read the launch counters.
+    Returns (obs, spans): each finished span appends its name, args, host
+    ms and the launches by kernel made inside it."""
+    import contextlib
+    from repro_torch.obs import Observability
+    obs = Observability()
+    spans = []
+    plain_span = obs.tracer.span
+
+    @contextlib.contextmanager
+    def span(name, **args):
+        before, t0 = launch_counts(), time.perf_counter()
+        with plain_span(name, **args):
+            yield
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        spans.append({"name": name, **args, "ms": ms, "launches": {
+            k: after[k] - before[k] for k in after if after[k] != before[k]}})
+
+    obs.tracer.span = span
+    return obs, spans
+
+
+def traced_sweep(sweep, out_dir, label, **kw):
+    """``run_sweep`` on the card under a ``counting_obs``; returns the
+    records, per run in order its spans and all its launches, every span
+    and the runner's messages."""
+    from repro_torch.experiments.runner import run_sweep
+    obs, spans = counting_obs()
+    marks, msgs = [], []
+
+    def log_fn(msg):
+        log(f"  {label}: {msg}")
+        msgs.append(msg)
+        if ": running (" in msg:
+            marks.append((len(spans), launch_counts()))
+
+    records = run_sweep(sweep, out_dir, log_fn=log_fn, obs=obs,
+                        device="cuda", **kw)
+    marks.append((len(spans), launch_counts()))
+    runs = []
+    for (i, c0), (j, c1) in zip(marks, marks[1:]):
+        runs.append({"spans": spans[i:j], "launches": {
+            k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}})
+    return records, runs, spans, msgs
+
+
+def same_record(a, b) -> bool:
+    """Equal in every field but ``wall_s`` (canonical JSON, so NaN fits
+    compare equal)."""
+    def canon(r):
+        return json.dumps({k: v for k, v in r.items() if k != "wall_s"},
+                          sort_keys=True)
+    return canon(a) == canon(b)
+
+
+def first_difference(a, b) -> str:
+    for k in sorted(set(a) | set(b)):
+        if k != "wall_s" and json.dumps(a.get(k), sort_keys=True) != \
+                json.dumps(b.get(k), sort_keys=True):
+            if k == "metrics":
+                for name in sorted(set(a[k]) | set(b[k])):
+                    if a[k].get(name) != b[k].get(name):
+                        return f"metrics[{name!r}]: {a[k].get(name)} vs " \
+                               f"{b[k].get(name)}"
+            return f"{k}: {a.get(k)} vs {b.get(k)}"
+    return "none"
+
+
+def kill_and_resume(spec, ref, every: int, ckpt_dir):
+    """Run ``spec`` with checkpoints every ``every`` steps, kill it at its
+    step-``every`` evaluation (right after the first checkpoint), run it
+    again from the checkpoint; the record must equal ``ref`` in every
+    field but ``wall_s``. Returns the two parts' wall seconds."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.experiments.runner import run_one
+
+    def killer(msg):
+        if msg.startswith(f"step {every:5d}"):
+            raise Killed(msg)
+
+    t0 = time.perf_counter()
+    try:
+        run_one(spec, checkpoint_dir=ckpt_dir, checkpoint_every=every,
+                log_fn=killer, device="cuda")
+    except Killed:
+        pass
+    else:
+        raise AssertionError(f"{spec.method}: the run was not killed")
+    killed_s = time.perf_counter() - t0
+    saved = latest_step(ckpt_dir)
+    if saved != every:
+        raise AssertionError(f"{spec.method}: latest checkpoint {saved}, "
+                             f"want {every}")
+    t0 = time.perf_counter()
+    resumed = run_one(spec, checkpoint_dir=ckpt_dir, checkpoint_every=every,
+                      device="cuda")
+    resumed_s = time.perf_counter() - t0
+    if not same_record(resumed, ref):
+        raise AssertionError(f"{spec.method}: the resumed record differs "
+                             f"from the uninterrupted one: "
+                             f"{first_difference(resumed, ref)}")
+    log(f"  kill at step {every} + resume from step {saved}: record equal "
+        f"to the uninterrupted run's in every field but wall_s (killed part "
+        f"{killed_s:.2f} s, resumed part {resumed_s:.2f} s, uninterrupted "
+        f"wall_s {ref['wall_s']:.2f} s)")
+    return killed_s, resumed_s
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def phase_sweep(tmp):
+    """Phase 19: the Table-1 sweep at full width through the runner.
+    ``generalization_gap(steps=48, large_batch=4096, small_batch=128,
+    ghost=128)`` on RESNET44_CIFAR10 (published widths, 44 layers) and
+    SWEEP_DATA, ``use_kernels=True``, evaluating every 16 steps, through
+    ``run_sweep(checkpoint_every=16)`` under a counting ``obs``: five
+    records; each run's Table-1 row, wall_s, steps and median ms a step.
+    Gates: B1 and B2 launch exactly 43 + 43 a step in the two +GBN columns
+    and none in a step of the other three, none in an evaluation and none
+    outside the steps; each record's steps is its regime's; every accuracy
+    is finite. Then the LB+LR+GBN+RA run killed at its step-16 evaluation
+    and resumed equals its record in every field but wall_s, and the
+    sweep run again skips all five runs and runs no step. Last, a
+    profiled train step of SB (B=128) and of LB (B=4096), the columns on
+    the plain equal-weight BN."""
+    from repro_torch.configs import RESNET44_CIFAR10
+    from repro_torch.experiments import metrics as M
+    from repro_torch.experiments.registry import generalization_gap
+    from repro_torch.experiments.spec import DataSpec, replace_path
+    sweep = generalization_gap(steps=SWEEP_STEPS, large_batch=BATCH,
+                               small_batch=128, ghost=GHOST)
+    base = sweep.base
+    for path, value in (("model", RESNET44_CIFAR10),
+                        ("data", DataSpec(**SWEEP_DATA)),
+                        ("use_kernels", True), ("eval_every", SWEEP_EVERY)):
+        base = replace_path(base, path, value)
+    sweep = dataclasses.replace(sweep, base=base)
+    specs = sweep.expand()
+    out_dir = str(Path(tmp) / "sweeps")
+    t0 = time.perf_counter()
+    records, runs, _, _ = traced_sweep(sweep, out_dir, "sweep",
+                                       checkpoint_every=SWEEP_EVERY)
+    sweep_s = time.perf_counter() - t0
+    if [r["run_id"] for r in records] != [s.run_id for s in specs] or \
+            len(runs) != len(specs):
+        raise AssertionError(f"sweep: {len(records)} records, {len(runs)} "
+                             f"runs for {len(specs)} specs")
+    log(f"generalization-gap on {RESNET44_CIFAR10.name} (full width), "
+        f"{SWEEP_STEPS} steps, B={BATCH} vs 128, ghost {GHOST}, kernels on, "
+        f"eval every {SWEEP_EVERY}, checkpoints every {SWEEP_EVERY}: "
+        f"{sweep_s:.1f} s")
+    log(M.format_table1(M.table1_view(records)))
+    per_run = {}
+    for spec, rec, run in zip(specs, records, runs):
+        steps = [s for s in run["spans"] if s["name"] == "train.step"]
+        evals = [s for s in run["spans"] if s["name"] == "train.eval"]
+        want_steps = spec.regime().total_steps
+        gbn = 43 if spec.lb.use_gbn else 0
+        want = {"gbn_forward": gbn, "gbn_backward": gbn} if gbn else {}
+        step_ms = median([s["ms"] for s in steps])
+        log(f"  {spec.method:<13} b={spec.batch_size:<5d} steps "
+            f"{rec['steps']:3d} wall_s {rec['wall_s']:7.2f} median "
+            f"{step_ms:8.2f} ms a step (first {steps[0]['ms']:.2f}); "
+            f"{len(evals)} evals, median {median([e['ms'] for e in evals]):.2f}"
+            f" ms; launches {run['launches']}; final_acc "
+            f"{rec['final_acc']:.4f} best {rec['best_acc']:.4f} train "
+            f"{rec['train_acc']:.4f}")
+        if rec["steps"] != want_steps or len(steps) != want_steps:
+            raise AssertionError(f"{spec.method}: {rec['steps']} steps, "
+                                 f"{len(steps)} step spans, want "
+                                 f"{want_steps}")
+        bad = [s for s in steps if s["launches"] != want]
+        if bad:
+            raise AssertionError(f"{spec.method}: step {bad[0]['step']} "
+                                 f"launched {bad[0]['launches']}, want {want}")
+        if any(e["launches"] for e in evals):
+            raise AssertionError(f"{spec.method}: an evaluation launched "
+                                 f"kernels: {[e['launches'] for e in evals]}")
+        total = {k: v * want_steps for k, v in want.items()}
+        if run["launches"] != total:
+            raise AssertionError(f"{spec.method}: the run launched "
+                                 f"{run['launches']}, want {total}")
+        if not all(math.isfinite(rec[k])
+                   for k in ("final_acc", "best_acc", "train_acc")):
+            raise AssertionError(f"{spec.method}: accuracy not finite")
+        per_run[spec.method] = {"wall_s": rec["wall_s"], "steps": rec["steps"],
+                                "step_ms": step_ms}
+
+    ra = specs[-1]
+    if ra.method != "LB+LR+GBN+RA":
+        raise AssertionError(f"last column is {ra.method}")
+    killed_s, resumed_s = kill_and_resume(
+        ra, records[-1], SWEEP_EVERY, str(Path(tmp) / "resume" / ra.run_id))
+
+    t0 = time.perf_counter()
+    again, reruns, spans, msgs = traced_sweep(
+        sweep, out_dir, "again", checkpoint_every=SWEEP_EVERY)
+    skip_s = time.perf_counter() - t0
+    if spans or reruns or len(msgs) != len(specs) or \
+            not all(m.endswith("skipping") for m in msgs):
+        raise AssertionError(f"the second pass ran {len(reruns)} runs, "
+                             f"{len(spans)} spans: {msgs}")
+    if not all(same_record(a, b) for a, b in zip(again, records)) or \
+            len(again) != len(records):
+        raise AssertionError("the second pass returned other records")
+    log(f"  second pass: all {len(specs)} runs skipped, no step run, "
+        f"{skip_s:.2f} s")
+
+    # where a step's time goes in the columns without B1/B2: SB at B=128
+    # and LB at B=4096, both on the plain equal-weight BN
+    data = base.data.build()
+    for spec in specs[:2]:
+        per_run[spec.method]["profiled_ms"] = phase_step_time(
+            f"sweep {spec.method} b={spec.batch_size}", spec.model, data,
+            spec.lb, spec.regime())
+    return {"sweep_s": sweep_s, "runs": per_run, "killed_s": killed_s,
+            "resumed_s": resumed_s, "skip_s": skip_s}
+
+
+def lm_smoke_launches(cfg, chunk_len):
+    """A reduced LM train step's launches by kernel (forward and backward):
+    qwen3 as phase 13's gate at the reduced depth, falcon-mamba as phase
+    17's."""
+    from repro_torch.models.ssm import DEFAULT_CHUNK
+    L = cfg.n_layers
+    if cfg.ssm is not None:
+        chunks = L * -(-chunk_len // DEFAULT_CHUNK)
+        return want_launches(mamba_chunk=chunks, mamba_chunk_backward=chunks,
+                             rmsnorm_residual=L + 1,
+                             rmsnorm_residual_backward=L + 1)
+    return want_launches(rmsnorm_residual=2 * L + 1,
+                         rmsnorm_residual_backward=2 * L + 1,
+                         swiglu=L, swiglu_backward=L,
+                         flash_attention_rope=L, flash_attention_backward=L)
+
+
+def phase_lm_sweeps(tmp):
+    """Phase 20: ``lm_smoke(steps=8)`` through the runner for reduced
+    qwen3-1.7b and falcon-mamba-7b in f32, ``use_kernels=True`` as
+    registered, two methods each, checkpoints every 4 steps, under a
+    counting ``obs``. Gates: every step launches exactly the train step's
+    kernels (``want_launches``); an evaluation exactly the forward ones
+    once per holdout chunk, as does the final evaluation; steps as the
+    regime says, CE finite. Then the qwen3 LB+LR+NOISE run (gradient
+    noise) killed at its step-4 evaluation and resumed equals its record
+    in every field but wall_s."""
+    from repro_torch.experiments.registry import lm_smoke
+    from repro_torch.experiments.runner import _lm_config
+    out = {}
+    for arch in LM_SMOKE_ARCHS:
+        sweep = lm_smoke(steps=LM_SMOKE_STEPS, arch=arch)
+        specs = sweep.expand()
+        t0 = time.perf_counter()
+        records, runs, _, _ = traced_sweep(
+            sweep, str(Path(tmp) / "lm"), arch,
+            checkpoint_every=LM_SMOKE_EVERY)
+        wall = time.perf_counter() - t0
+        for spec, rec, run in zip(specs, records, runs):
+            cfg = _lm_config(spec)
+            step_want = {k: v for k, v in
+                         lm_smoke_launches(cfg, spec.lm_seq_len).items() if v}
+            fwd = {k: v for k, v in step_want.items()
+                   if not k.endswith("_backward")}
+            n_rows = spec.lm_n_tokens // spec.lm_seq_len
+            holdout = max(spec.lb.batch_size, n_rows // 10)
+            chunks = -(-holdout // spec.lb.batch_size)
+            eval_want = {k: v * chunks for k, v in fwd.items()}
+            steps = [s for s in run["spans"] if s["name"] == "train.step"]
+            evals = [s for s in run["spans"] if s["name"] == "train.eval"]
+            n_steps = spec.regime().total_steps
+            log(f"  {arch} {spec.method:<12} b={spec.batch_size:<3d} steps "
+                f"{rec['steps']} final_ce {rec['final_ce']:.4f} wall_s "
+                f"{rec['wall_s']:.2f} median {median([s['ms'] for s in steps]):.2f}"
+                f" ms a step; a step launches {steps[-1]['launches']}; an "
+                f"eval ({chunks} chunks) {evals[-1]['launches']}")
+            if rec["steps"] != n_steps or len(steps) != n_steps:
+                raise AssertionError(f"{arch} {spec.method}: {rec['steps']} "
+                                     f"steps, want {n_steps}")
+            bad = [s for s in steps if s["launches"] != step_want]
+            if bad:
+                raise AssertionError(f"{arch} {spec.method}: step "
+                                     f"{bad[0]['step']} launched "
+                                     f"{bad[0]['launches']}, want {step_want}")
+            bad = [e for e in evals if e["launches"] != eval_want]
+            if bad or not evals:
+                raise AssertionError(f"{arch} {spec.method}: evaluations "
+                                     f"launched {[e['launches'] for e in evals]}"
+                                     f", want {eval_want} each")
+            total = {k: n_steps * step_want.get(k, 0)
+                     + (len(evals) + 1) * eval_want.get(k, 0)
+                     for k in step_want}
+            if run["launches"] != total:
+                raise AssertionError(f"{arch} {spec.method}: the run "
+                                     f"launched {run['launches']}, want "
+                                     f"{total}")
+            if not math.isfinite(rec["final_ce"]):
+                raise AssertionError(f"{arch} {spec.method}: CE not finite")
+        out[arch] = wall
+        if arch == LM_SMOKE_ARCHS[0]:
+            kill_and_resume(specs[-1], records[-1], LM_SMOKE_EVERY,
+                            str(Path(tmp) / "lm-resume" / specs[-1].run_id))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3352,7 +3705,8 @@ def main() -> int:
             f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
             f"{torch.cuda.device_count()}; tf32 matmul="
             f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
-            f"{torch.backends.cudnn.allow_tf32}")
+            f"{torch.backends.cudnn.allow_tf32}; cudnn deterministic="
+            f"{torch.backends.cudnn.deterministic}")
         t_start = time.perf_counter()
         took = {}
 
@@ -3409,6 +3763,12 @@ def main() -> int:
         lap("mamba train")
         phase_mamba_cuda_vs_cpu()
         lap("mamba cuda vs cpu")
+        # slice 6: the paper's sweeps through the experiments runner
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sweeps_") as tmp:
+            sweeps = phase_sweep(tmp)
+            lap("sweep")
+            lm_sweeps = phase_lm_sweeps(tmp)
+            lap("lm sweeps")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3471,6 +3831,14 @@ def main() -> int:
         + ", ".join(f"{r['name']} {r['ms']:.2f} ms (bound "
                     f"{r['bound_ms']:.3f}, {r['launches']} launches)"
                     for r in mamba))
+    log(f"generalization-gap sweep ({RESNET44_CIFAR10.name}, B={BATCH}): "
+        f"{sweeps['sweep_s']:.1f} s; " + ", ".join(
+            f"{m} {r['steps']} steps {r['wall_s']:.2f} s ({r['step_ms']:.2f} "
+            f"ms a step)" for m, r in sweeps["runs"].items())
+        + f"; kill + resume {sweeps['killed_s']:.2f} + "
+        f"{sweeps['resumed_s']:.2f} s; skip pass {sweeps['skip_s']:.2f} s; "
+        f"lm-smoke sweeps " + ", ".join(f"{a} {s:.1f} s"
+                                        for a, s in lm_sweeps.items()))
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
         f" (seconds by part: {took})")
     log(smi)

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.checkpoint import (latest_step, load_meta,
+                                               restore, save)
+
+__all__ = ["latest_step", "load_meta", "restore", "save"]

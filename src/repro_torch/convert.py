@@ -36,7 +36,7 @@ def to_torch(np_tree: Any, device: DeviceLike = None) -> Any:
         a = np.asarray(a)
         if a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)                  # HWIO -> OIHW
-        return torch.tensor(np.ascontiguousarray(a), device=dev)
+        return torch.tensor(np.array(a, order="C"), device=dev)  # 0-d stays 0-d
 
     return tree.map(one, np_tree)
 
@@ -49,6 +49,16 @@ def to_numpy(torch_tree: Any) -> Any:
         return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a   # OIHW -> HWIO
 
     return tree.map(one, torch_tree)
+
+
+def is_decoder_tree(t: Any) -> bool:
+    """Whether ``t`` holds a block stack (a decoder's parameters, caches or
+    optimizer moments) rather than a vision model's tree."""
+    if isinstance(t, dict):
+        return set(t) == _STACK or any(is_decoder_tree(v) for v in t.values())
+    if isinstance(t, (list, tuple)):
+        return any(is_decoder_tree(v) for v in t)
+    return False
 
 
 def _leaf_to_torch(a: Any, dev: torch.device) -> torch.Tensor:

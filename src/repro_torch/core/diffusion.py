@@ -95,6 +95,12 @@ class DiffusionTracker:
             self._pending.clear()
         return self._host
 
+    def load(self, steps: Sequence[int], distances: Sequence[float]) -> None:
+        """Restore a previously recorded series (checkpoint resume)."""
+        _ = self.distances                            # flush pending first
+        self.steps = list(steps)
+        self._host = [float(d) for d in distances]
+
     def log_fit(self, burn_in: int = 1) -> Dict[str, float]:
         return fit_log_diffusion(self.steps, self.distances, burn_in)
 

@@ -9,8 +9,8 @@ series store of the trainers.
   samples.
 - :class:`Registry` — the name -> metric table one process shares, with
   JSONL export and an aligned plain-text summary table.
-- :class:`MetricsLogger` — the (step, name, value) series store, without
-  the reference's registry mirror (no trainer of the port feeds one yet).
+- :class:`MetricsLogger` — the (step, name, value) series store of a
+  training run, optionally mirrored into a :class:`Registry`.
 
 Naming contract: ``<subsystem>/<signal>`` with unit suffixes —
 ``serve/ttft_s``, ``serve/queue_depth``.
@@ -218,16 +218,41 @@ class Registry:
 
 
 class MetricsLogger:
-    """Append-only (step, name, value) scalar series for one run."""
+    """Append-only (step, name, value) scalar series for one run.
+
+    ``attach_registry`` mirrors every subsequently logged scalar into the
+    same-named (optionally prefixed) metric of the registry, so a run's
+    series feed the shared observability sink without the trainers growing
+    a second logging call: a :class:`Gauge` already there takes the value
+    (the trainers' ``train/lr``, which the logged ``lr`` series repeats),
+    else a :class:`Histogram` observes it. The JAX package's logger always
+    observes, which raises TypeError on the gauge ``train/lr`` when a run
+    with ``obs`` evaluates.
+    """
 
     def __init__(self) -> None:
         self._steps: Dict[str, List[int]] = defaultdict(list)
         self._values: Dict[str, List[float]] = defaultdict(list)
+        self._registry: Optional[Registry] = None
+        self._prefix = ""
+
+    def attach_registry(self, registry: Registry, prefix: str = "") -> None:
+        self._registry = registry
+        self._prefix = prefix
 
     def log(self, step: int, **scalars: float) -> None:
         for name, value in scalars.items():
             self._steps[name].append(int(step))
             self._values[name].append(float(value))
+            if self._registry is not None:
+                self._mirror(self._prefix + name, value)
+
+    def _mirror(self, name: str, value: float) -> None:
+        metric = self._registry.get(name)
+        if isinstance(metric, Gauge):
+            metric.set(value)
+        else:
+            self._registry.observe(name, value)
 
     def set_series(self, name: str, steps: Sequence[int],
                    values: Sequence[float]) -> None:
@@ -236,6 +261,10 @@ class MetricsLogger:
         than logged float-by-float)."""
         self._steps[name] = [int(s) for s in steps]
         self._values[name] = [float(v) for v in values]
+        if self._registry is not None:
+            h = self._registry.histogram(self._prefix + name)
+            for v in values:
+                h.observe(v)
 
     def names(self) -> List[str]:
         return sorted(name for name in self._steps if self._steps[name])

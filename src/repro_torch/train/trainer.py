@@ -10,27 +10,31 @@
 A step takes ``torch.autograd.grad`` over detached leaves of the parameter
 tree and returns a new tree (the reference's functional update); its
 metrics stay on the device until the loop fetches them in one transfer.
-Gradient noise draws from an explicit ``torch.Generator``.
-Checkpoint/resume, meshes, batch schedules and tracing are not ported
-yet.
+Gradient noise draws from an explicit ``torch.Generator``. Both loops
+checkpoint and resume their run state (:mod:`repro_torch.checkpoint`) and
+report into ``obs=``; meshes come with the parallel slice.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import tree
 from repro_torch.configs.paper_models import VisionModelConfig
 from repro_torch.core.diffusion import DiffusionTracker
 from repro_torch.core.large_batch import LargeBatchConfig
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.regime import Regime
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.core.regime import BatchSchedule, Regime
+from repro_torch.device import (DeviceLike, process_index_count,
+                                resolve_device)
 from repro_torch.models import transformer as T
 from repro_torch.obs.metrics import MetricsLogger
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim import adam, sgd
 
 Params = Any
@@ -137,6 +141,50 @@ def _host_metrics(m: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(keys, vals))
 
 
+def _obs_step_metrics(reg, t0: float, mh: Dict[str, float],
+                      batch_size: int) -> None:
+    """Per-step training telemetry: step wall time (the caller fetched the
+    step's metrics first, which waits for the step), grad norm, and the
+    current schedule state (LR / batch size). ``mh`` is the step's metrics
+    on the host, fetched in one transfer (:func:`_host_metrics`)."""
+    reg.observe("train/step_time_s", time.perf_counter() - t0)
+    reg.set("train/lr", mh["lr"])
+    reg.set("train/batch_size", batch_size)
+    if "grad_norm" in mh:
+        reg.observe("train/grad_norm", mh["grad_norm"])
+    reg.inc("train/steps")
+
+
+def _save_run_state(checkpoint_dir: str, step: int, params, bn_state,
+                    opt_state, *, epoch: int, cursor: int,
+                    logger: MetricsLogger, tracker) -> None:
+    extra: Dict[str, Any] = {"epoch": epoch, "cursor": cursor,
+                             "metrics": logger.to_json()}
+    if tracker is not None:
+        extra["tracker"] = {"steps": list(tracker.steps),
+                            "distances": list(tracker.distances)}
+    ckpt.save(checkpoint_dir, step, params, opt_state, extra=extra,
+              bn_state=bn_state, sharded=process_index_count()[1] > 1)
+
+
+def _restore_run_state(checkpoint_dir, params, opt_state, bn_state, tracker):
+    """Shared resume path: restore trees + (step, epoch, cursor, logger)
+    from the latest checkpoint, or the fresh-run defaults when none exists.
+    ``bn_state=None`` (the LM loop) skips the BN-state tree."""
+    if not checkpoint_dir or ckpt.latest_step(checkpoint_dir) is None:
+        return params, opt_state, bn_state, 0, 0, 0, MetricsLogger()
+    params, _ = ckpt.restore(checkpoint_dir, params)
+    opt_state, _ = ckpt.restore(checkpoint_dir, opt_state, kind="opt")
+    if bn_state is not None:
+        bn_state, _ = ckpt.restore(checkpoint_dir, bn_state, kind="state")
+    meta = ckpt.load_meta(checkpoint_dir)
+    logger = MetricsLogger.from_json(meta["metrics"])
+    if tracker is not None and "tracker" in meta:
+        tracker.load(meta["tracker"]["steps"], meta["tracker"]["distances"])
+    return (params, opt_state, bn_state, meta["step"], meta["epoch"],
+            meta["cursor"], logger)
+
+
 def train_vision(model_fns, cfg: VisionModelConfig, data,
                  lb: LargeBatchConfig, regime: Regime, *, seed: int = 0,
                  eval_every: int = 0, track_diffusion: bool = True,
@@ -144,19 +192,47 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
                  log_fn: Optional[Callable[[str], None]] = None,
                  use_kernels: bool = False,
                  weight_decay: float = 5e-4,
+                 batch_schedule: Optional[BatchSchedule] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0, resume: bool = True, obs=None,
                  device: DeviceLike = None) -> Dict[str, Any]:
     """Full training run; returns final/best accuracy + diffusion trace.
 
     Runs on the card unless ``device="cpu"``. The dataset moves to the
     device once and batches are gathered there. ``use_kernels=True`` trains
     through the CUDA GBN kernel pair (on the CPU: its plain version).
+
+    Initialization, each step's gradient noise and each epoch's shuffle
+    are pure functions of (seed, step) and (seed, epoch), which together
+    with ``checkpoint_dir`` + ``checkpoint_every`` makes runs resumable:
+    an interrupted run restarts from the last saved (params, bn_state,
+    opt_state, epoch, cursor, metrics) and replays the identical batch
+    sequence (``resume=False`` starts afresh).
+
+    ``batch_schedule`` (a :class:`repro_torch.core.regime.BatchSchedule`)
+    grows the batch size during training instead of decaying the LR
+    (Smith et al. 2018).
+
+    ``obs`` (a :class:`repro_torch.obs.Observability`) wraps every step in
+    a ``train.step`` span and every evaluation in ``train.eval``, and emits
+    ``train/step_time_s`` / ``train/grad_norm`` histograms, ``train/lr``
+    and ``train/batch_size`` gauges, the ``train/steps`` counter and the
+    logger's series mirrored under ``train/``. With ``obs`` the loop
+    fetches each step's metrics in one transfer inside its span, which
+    makes the step time real; without it nothing is added to the loop.
     """
     dev = resolve_device(device)
     init_fn, apply_fn = model_fns
     params, bn_state = init_fn(seed, cfg, dev)
     opt_state = sgd.init(params)
     tracker = DiffusionTracker(params) if track_diffusion else None
-    logger = MetricsLogger()
+    params, opt_state, bn_state, step, epoch, cursor, logger = \
+        _restore_run_state(checkpoint_dir if resume else None,
+                           params, opt_state, bn_state, tracker)
+    tracer = obs.tracer if obs is not None else NULL_TRACER
+    reg = obs.registry if obs is not None else None
+    if obs is not None:
+        logger.attach_registry(obs.registry, prefix="train/")
     step_fn = make_vision_train_step(apply_fn, cfg, lb, regime,
                                      use_kernels=use_kernels,
                                      weight_decay=weight_decay)
@@ -169,11 +245,11 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
     x_te = torch.as_tensor(data.x_test, device=dev)
     y_te = torch.as_tensor(data.y_test, device=dev).long()
     n = x_tr.shape[0]
-    step = epoch = cursor = 0
     perm = _epoch_perm(seed, epoch, n, dev)
-    best = 0.0
+    best = logger.max("val_acc")
     while step < regime.total_steps:
-        b = min(lb.batch_size, n)
+        b = min(batch_schedule.batch_at(step) if batch_schedule is not None
+                else lb.batch_size, n)
         if cursor + b > n:
             epoch += 1
             cursor = 0
@@ -182,21 +258,34 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
         cursor += b
         if noise_gen is not None:
             noise_gen.manual_seed(_stream_seed(seed, _NOISE, step))
-        params, bn_state, opt_state, m = step_fn(
-            params, bn_state, opt_state, x_tr[idx], y_tr[idx], step,
-            noise_gen)
+        t0, mh = time.perf_counter(), None
+        with tracer.span("train.step", step=step, batch=b):
+            params, bn_state, opt_state, m = step_fn(
+                params, bn_state, opt_state, x_tr[idx], y_tr[idx], step,
+                noise_gen)
+            if reg is not None:
+                mh = _host_metrics(m)
+        if reg is not None:
+            _obs_step_metrics(reg, t0, mh, b)
         if tracker is not None and _record_diffusion(
                 step, regime.total_steps, diffusion_every):
             tracker.record(step + 1, params)
         if eval_every and step % eval_every == 0:
-            acc = evaluate(params, bn_state, x_te, y_te)
-            mh = _host_metrics(m)
+            with tracer.span("train.eval", step=step):
+                acc = evaluate(params, bn_state, x_te, y_te)
+            mh = mh or _host_metrics(m)
             logger.log(step, val_acc=acc, train_loss=mh["loss"], lr=mh["lr"])
             best = max(best, acc)
             if log_fn:
                 log_fn(f"step {step:5d} loss {mh['loss']:.4f} "
                        f"val_acc {acc:.4f} lr {mh['lr']:.4f}")
         step += 1
+        if (checkpoint_dir and checkpoint_every
+                and step % checkpoint_every == 0
+                and step < regime.total_steps):
+            _save_run_state(checkpoint_dir, step, params, bn_state,
+                            opt_state, epoch=epoch, cursor=cursor,
+                            logger=logger, tracker=tracker)
     final = evaluate(params, bn_state, x_te, y_te)
     train_acc = evaluate(params, bn_state, x_tr[:2048], y_tr[:2048])
     if tracker is not None:
@@ -292,13 +381,17 @@ def make_lm_eval_step(cfg: ModelConfig, use_kernels: bool = False
 def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
              rows: np.ndarray, *, seed: int = 0, eval_every: int = 0,
              holdout: int = 0, use_kernels: bool = False,
-             weight_decay: float = 0.0,
+             weight_decay: float = 0.0, track_diffusion: bool = False,
+             diffusion_every: int = 0,
              log_fn: Optional[Callable[[str], None]] = None, mesh=None,
+             checkpoint_dir: Optional[str] = None,
+             checkpoint_every: int = 0, resume: bool = True, obs=None,
              params: Optional[Params] = None,
              device: DeviceLike = None) -> Dict[str, Any]:
     """LM twin of :func:`train_vision`: drives :func:`make_lm_train_step`
     (momentum SGD) over (N, seq_len) token rows with the same structured
-    metrics and deterministic per-epoch shuffling.
+    metrics, deterministic per-epoch shuffling, checkpoint/resume contract
+    and ``obs`` telemetry.
 
     ``holdout`` rows from the end are held out for CE evaluation;
     ``eval_every`` logs ``train_loss``, ``eval_ce`` and ``lr`` (one host
@@ -306,15 +399,21 @@ def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
     (e.g. the reference's parameters carried across by
     :func:`repro_torch.convert.lm_to_torch`) instead of
     ``init_params(seed)``. Runs on the card unless ``device="cpu"``.
-    ``mesh`` raises (the parallel slice); the reference's checkpoint/resume,
-    ``obs=`` and diffusion tracking are not ported yet."""
+    ``mesh`` raises (the parallel slice)."""
     if mesh is not None:
         raise _needs_parallel_slice("train_lm(mesh=)")
     dev = resolve_device(device)
     if params is None:
         params = T.init_params(seed, cfg, dev)
     opt_state = sgd.init(params)
-    logger = MetricsLogger()
+    tracker = DiffusionTracker(params) if track_diffusion else None
+    params, opt_state, _, step, epoch, cursor, logger = \
+        _restore_run_state(checkpoint_dir if resume else None,
+                           params, opt_state, None, tracker)
+    tracer = obs.tracer if obs is not None else NULL_TRACER
+    reg = obs.registry if obs is not None else None
+    if obs is not None:
+        logger.attach_registry(obs.registry, prefix="train/")
     step_fn = make_lm_train_step(cfg, lb, regime, weight_decay=weight_decay,
                                  use_kernels=use_kernels)
     eval_fn = make_lm_eval_step(cfg, use_kernels=use_kernels)
@@ -342,7 +441,6 @@ def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
             total = total + eval_fn(params, {"tokens": chunk}) * chunk.shape[0]
         return float(total) / n_eval
 
-    step = epoch = cursor = 0
     perm = _epoch_perm(seed, epoch, n, dev)
     while step < regime.total_steps:
         if cursor + b > n:
@@ -353,17 +451,39 @@ def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
         cursor += b
         if noise_gen is not None:
             noise_gen.manual_seed(_stream_seed(seed, _NOISE, step))
-        params, opt_state, m = step_fn(params, opt_state,
-                                       {"tokens": train_rows[idx]}, step,
-                                       noise_gen)
+        t0, mh = time.perf_counter(), None
+        with tracer.span("train.step", step=step, batch=b):
+            params, opt_state, m = step_fn(params, opt_state,
+                                           {"tokens": train_rows[idx]}, step,
+                                           noise_gen)
+            if reg is not None:
+                mh = _host_metrics(m)
+        if reg is not None:
+            _obs_step_metrics(reg, t0, mh, b)
+        if tracker is not None and _record_diffusion(
+                step, regime.total_steps, diffusion_every):
+            tracker.record(step + 1, params)
         if eval_every and step % eval_every == 0:
-            ce = eval_ce()
-            mh = _host_metrics(m)
+            with tracer.span("train.eval", step=step):
+                ce = eval_ce()
+            mh = mh or _host_metrics(m)
             logger.log(step, eval_ce=ce, train_loss=mh["loss"], lr=mh["lr"])
             if log_fn:
                 log_fn(f"step {step:5d} loss {mh['loss']:.4f} "
                        f"eval_ce {ce:.4f}")
         step += 1
-    return {"final_ce": eval_ce(), "metrics": logger,
-            "history": logger.to_history(), "steps": step,
-            "params": params}
+        if (checkpoint_dir and checkpoint_every
+                and step % checkpoint_every == 0
+                and step < regime.total_steps):
+            _save_run_state(checkpoint_dir, step, params, None, opt_state,
+                            epoch=epoch, cursor=cursor, logger=logger,
+                            tracker=tracker)
+    final_ce = eval_ce()
+    if tracker is not None:
+        logger.set_series("distance", tracker.steps, tracker.distances)
+    out = {"final_ce": final_ce, "metrics": logger,
+           "history": logger.to_history(), "steps": step, "params": params}
+    if tracker is not None:
+        out["log_fit"] = tracker.log_fit(burn_in=2)
+        out["power_fit"] = tracker.power_fit(burn_in=2)
+    return out
