@@ -175,8 +175,41 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    checkpoints every 4 steps): every step must launch exactly the train
    step's kernels, every evaluation the forward ones once per holdout
    chunk; the qwen3 LB+LR+NOISE run killed at its step-4 evaluation and
-   resumed must equal its record but for ``wall_s``.
+   resumed must equal its record but for ``wall_s``;
+21. full-width qwen2-moe-a2.7b ``generate`` in bf16 (24 layers, 60
+   experts top-4 and a fused shared expert, random weights from
+   SERVE_SEED), the prompts of phase 7: exactly 24 flash_attention, 744
+   flash_decode, 1568 rmsnorm_residual (49 a pass) and 768 swiglu (the
+   shared expert) launches, nothing else; a second run bit-equal; the
+   shares of dropped assignments at prefill and decode; prefill ms,
+   decode ms a step, tokens/s, peak memory, a profiled prefill and decode
+   step by family (the routed experts' ``bmm``, the dispatch's and
+   combine's index copies and the routing named by the op that launched
+   them, MOE_OPS), and a profiled generate: device ms by family;
+22. ContinuousEngine on the same parameters: phase 10's slots, max_len
+   and pages, a bf16 pool, the first MOE_ENGINE_REQUESTS requests of
+   ENGINE_TRACE; every request completes; exactly 24 flash_decode_paged
+   launches a step and 24 flash_attention launches an admission, 49
+   rmsnorm_residual and 24 swiglu a pass; useful tokens/s; a profiled run
+   (the paged kernel's device ms, its count against the counter);
+23. qwen2-moe-a2.7b training at full width, depth cut from 24 to
+   MOE_TRAIN_LAYERS = 2 (bf16, f32 momentum, B=8 x T=512, lr and clip as
+   phase 13; one warm and five timed steps): exactly 5/5 norm, 2/2
+   SwiGLU and 2/2 RoPE flash attention launches a step, the loss
+   falling, a remat step equal to the plain one, step ms, tokens/s, peak
+   memory, moe_aux, a profiled step whose kernel counts match the
+   counters;
+24. reduced qwen2-moe-a2.7b and kimi-k2-1t-a32b in f32, card (kernels)
+   against CPU (plain versions) from the same parameters: the prefill's
+   routing equal layer by layer (topi, then slot, keep and the capacity;
+   a token routed differently fails unless two of its k + 1 largest
+   probabilities are within NEAR_TIE, and such tokens are counted),
+   prefill logits within TOL, greedy tokens of ragged prompts equal, one
+   train step's loss within LOSS_TOL and parameters within TOL.
 
+A line before the second-to-last gives the MoE path's kernels: each one's
+device ms and launches in the profiled generate, engine run and train
+step of phases 21–23.
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, with a
 bound that sums the prefill calls' and the decode calls' own bounds; the paged
@@ -192,6 +225,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -757,35 +791,83 @@ FLASH_EDGES = [((1, 2, 2, 17, 32), True, None, None),
                ((2, 2, 1, 70, 256), True, 9, (64, 0))]
 
 
+def op_labels(events, by_op):
+    """{correlation id of a host op: label} for every op that runs inside
+    an op named in ``by_op`` on the same thread (itself included): a
+    kernel's ``linked_correlation_id`` names the innermost op at its
+    launch, which can sit inside the named one (``index_select`` of many
+    rows runs ``gather``)."""
+    import bisect
+    spans = {}
+    for ev in events:
+        if ev.device_type().name == "CPU" and ev.name() in by_op:
+            spans.setdefault(ev.start_thread_id(), []).append(
+                (ev.start_ns(), ev.end_ns(), by_op[ev.name()]))
+    for v in spans.values():
+        v.sort()
+    starts = {th: [a for a, _, _ in v] for th, v in spans.items()}
+    label = {}
+    for ev in events:
+        th = ev.start_thread_id()
+        if ev.device_type().name != "CPU" or th not in spans:
+            continue
+        i = bisect.bisect_right(starts[th], ev.start_ns()) - 1
+        if i >= 0 and spans[th][i][1] >= ev.end_ns():
+            label[ev.correlation_id()] = spans[th][i][2]
+    return label
+
+
 def profile_device_ms(fn, reps: int = 10, warm: bool = True,
-                      host: bool = True, tries: int = 3):
+                      host: bool = True, tries: int = 3, by_op=None,
+                      host_ops=None):
     """Device time per call of everything ``fn`` launches (torch.profiler,
-    after one warm call unless ``warm`` is off; ``host=False`` records the
+    after one warm call, the profiler's warmup step, unless ``warm`` is
+    off; ``host=False`` records the
     device's activity only), and the kernels by name: (ms, calls, name) per
-    call. A window that comes back with no device event at all (as one
-    has now and then on the card, early and late in a run) holds no
-    reading and is profiled again, at most ``tries`` times in all; None
-    when none shows device time. A window with some events is taken as it
-    is: a kernel whose events it lost shows fewer calls a call."""
+    call. With ``by_op`` ({op name: label}, host activity on) a kernel
+    launched inside one of those ops (``op_labels``) is named "label:
+    kernel"; ``host_ops`` (a dict) receives each host event's ms a call
+    and count by name (nested ops each count their whole span). A
+    window that comes back with no device event at all (as one has now and
+    then on the card, early and late in a run) holds no reading and is
+    profiled again, at most ``tries`` times in all; None when none shows
+    device time. A window with some events is taken as it is: a kernel
+    whose events it lost shows fewer calls a call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    if warm:
-        fn()
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     for _ in range(tries):
-        with profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        # the warm call is the profiler's warmup step: traced, its events
+        # discarded (late in a run a window's first kernels have gone
+        # unrecorded when tracing began with the measured call)
+        ready = []
+        with profile(activities=acts, schedule=schedule(
+                wait=0, warmup=int(warm), active=1, repeat=1),
+                on_trace_ready=lambda p: ready.append(
+                    p.profiler.kineto_results)) as prof:
+            for n in [1] * warm + [reps]:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         # the raw device events, summed by name (a whole engine run holds
         # ~10^6 events, too many to parse into the profiler's event tree)
         by_name = {}
-        for ev in prof.profiler.kineto_results.events():
+        events = ready[0].events()
+        label = op_labels(events, by_op) if by_op else {}
+        for ev in events:
             if ev.device_type().name == "CUDA" and \
                     not getattr(ev, "is_user_annotation", lambda: False)():
-                t, n = by_name.get(ev.name(), (0, 0))
-                by_name[ev.name()] = (t + ev.duration_ns(), n + 1)
+                name = ev.name()
+                if ev.linked_correlation_id() in label:
+                    name = f"{label[ev.linked_correlation_id()]}: {name}"
+                t, n = by_name.get(name, (0, 0))
+                by_name[name] = (t + ev.duration_ns(), n + 1)
+            elif host_ops is not None and ev.device_type().name == "CPU":
+                t, n = host_ops.get(ev.name(), (0, 0))
+                host_ops[ev.name()] = (t + ev.duration_ns() / 1e6 / reps,
+                                       n + 1)
         kernels = [(t / 1e6 / reps, n // reps, name)
                    for name, (t, n) in by_name.items() if t]
         total = sum(k[0] for k in kernels)
@@ -1101,6 +1183,8 @@ def reset_serving_launches():
 
 
 def family(name: str) -> str:
+    if name.startswith("moe_"):         # named by its op (MOE_OPS)
+        return name.split(":")[0]
     n = name.lower()
     if "rmsnorm_residual_bwd" in n or "rmsnorm_residual_dscale" in n:
         return "rmsnorm_residual_bwd"
@@ -1117,25 +1201,39 @@ def family(name: str) -> str:
     return "other"
 
 
-def family_profile(label, fn):
+def by_family(kernels):
+    """(device ms, kernels) of each family of profiled (ms, calls, name)."""
+    fam, calls = {}, {}
+    for t, count, name in kernels:
+        fam[family(name)] = fam.get(family(name), 0.0) + t
+        calls[family(name)] = calls.get(family(name), 0) + count
+    return fam, calls
+
+
+def family_profile(label, fn, by_op=None):
     """Host ms of one synchronized call and one profiled call's device ms
-    by kernel family: {"host_ms", "busy_ms", "families", "calls"}."""
+    by kernel family (``by_op`` as ``profile_device_ms``): {"host_ms",
+    "busy_ms", "families", "calls"}."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    busy, kernels = profile_device_ms(fn, reps=1)
-    fam, calls = {}, {}
-    for t, count, name in kernels:
-        fam[family(name)] = fam.get(family(name), 0.0) + t
-        calls[family(name)] = calls.get(family(name), 0) + count
+    host_ops = {} if by_op else None
+    busy, kernels = profile_device_ms(fn, reps=1, by_op=by_op,
+                                      host_ops=host_ops)
+    fam, calls = by_family(kernels)
     busy = busy or 0.0
     log(f"  profile {label}: device ms by family "
         f"{ {k: round(v, 3) for k, v in sorted(fam.items())} } (kernels "
         f"{dict(sorted(calls.items()))}); busy {busy:.3f} ms of a "
         f"{host_ms:.3f} ms call (idle share {1 - busy / host_ms:.3f})")
+    if host_ops:
+        log("    host events by total ms (nested ops count their whole "
+            "span): " + ", ".join(
+                f"{name} {t:.3f} x{n}" for name, (t, n) in sorted(
+                    host_ops.items(), key=lambda kv: -kv[1][0])[:16]))
     # the eight longest kernels, then each other kernel of the port's own
     # families (the launches of a multi-kernel call, such as B6's gate and
     # dx kernels, one by one)
@@ -1848,10 +1946,7 @@ def phase_engine(params):
             busy, kernels = profile_device_ms(lambda: eng.run(trace),
                                               reps=1, warm=False, host=False,
                                               tries=1)
-            fam, calls = {}, {}
-            for t, count, name in kernels:
-                fam[family(name)] = fam.get(family(name), 0.0) + t
-                calls[family(name)] = calls.get(family(name), 0) + count
+            fam, calls = by_family(kernels)
             paged = serving_launches()["flash_decode_paged"]
             if calls.get("flash_decode_paged") == paged:
                 break
@@ -1937,10 +2032,7 @@ def phase_engine(params):
                      for r in trace[:16]])
         except _Stop:
             pass
-        fam, calls = {}, {}
-        for t, count, name in prof["kernels"]:
-            fam[family(name)] = fam.get(family(name), 0.0) + t
-            calls[family(name)] = calls.get(family(name), 0) + count
+        fam, calls = by_family(prof["kernels"])
         busy, host_ms = prof["busy"] or 0.0, prof["host_ms"]
         out[label]["profile"] = {"host_ms": host_ms, "busy_ms": busy,
                                  "families": fam, "calls": calls}
@@ -3682,6 +3774,561 @@ def phase_lm_sweeps(tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the MoE family (qwen2-moe-a2.7b at full width; qwen2-moe and
+# kimi-k2 reduced card against CPU)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_TRAIN_LAYERS = 2         # full width, depth cut from 24 to fit one card
+MOE_ENGINE_REQUESTS = 8      # the first requests of ENGINE_TRACE
+MOE_REDUCED = ("qwen2-moe-a2.7b-reduced", "kimi-k2-1t-a32b-reduced")
+NEAR_TIE = 1e-6              # a k-th/(k+1)-th probability margin below it
+# The op that launched a kernel names its family on the MoE path (the
+# profiler links each kernel to the innermost op on the stack at its
+# launch): the routed experts' batched products, the rows written by index
+# (the dispatch, and the combine's backward) and read by index (the
+# combine, and the dispatch's backward), and the routing's sorts.
+MOE_OPS = {"aten::bmm": "moe_bmm",
+           "aten::index_copy_": "moe_scatter", "aten::index_add_":
+           "moe_scatter", "aten::index_fill_": "moe_scatter",
+           "aten::index_select": "moe_gather",
+           "aten::_softmax": "moe_route", "aten::topk": "moe_route",
+           "aten::sort": "moe_route", "aten::cummax": "moe_route"}
+
+
+def moe_params(cfg):
+    """Random weights from SERVE_SEED at the config's widths, bf16."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer as TT
+    t0 = time.perf_counter()
+    params = TT.init_params(SERVE_SEED, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    m = cfg.moe
+    log(f"{cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.head_dim}, {m.n_experts} "
+        f"experts top-{m.top_k} d_expert {m.d_expert}, shared d "
+        f"{m.d_shared}, capacity factor {m.capacity_factor}, vocab "
+        f"{cfg.vocab_size} (untied head), {n_params / 1e9:.3f} B parameters "
+        f"in {cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+@contextlib.contextmanager
+def drops_counted(counts, prefill_len):
+    """Within: each ``moe._slots`` call adds its dropped and routed
+    assignments (device tensors, no sync) to ``counts["prefill"]`` (calls
+    over ``prefill_len`` tokens) or ``counts["decode"]``."""
+    from repro_torch.models import moe as MOE
+    real = MOE._slots
+
+    def slots(topi, C):
+        slot, keep = real(topi, C)
+        kind = "prefill" if topi.shape[1] == prefill_len else "decode"
+        counts.setdefault(kind, []).append(((~keep).sum(), keep.numel()))
+        return slot, keep
+
+    MOE._slots = slots
+    try:
+        yield counts
+    finally:
+        MOE._slots = real
+
+
+def drop_shares(counts):
+    return {k: sum(int(d) for d, _ in v) / sum(n for _, n in v)
+            for k, v in counts.items()}
+
+
+def phase_moe_serve():
+    """Phase 21: full-width qwen2-moe-a2.7b generate in bf16 (random weights
+    from SERVE_SEED): the prompts of phase 7, greedy, 32 new tokens. The
+    launch counters must show exactly 24 flash_attention, 744 flash_decode,
+    1568 rmsnorm_residual (49 a pass: each layer's pre-attention norm and
+    its fused residual pre-MoE norm, and the final norm) and 768 swiglu
+    (the shared expert, a layer a pass), nothing else; a second run gives
+    the same tokens bit for bit. Drop shares at prefill and decode,
+    prefill ms, decode ms a step, tokens/s, peak memory, a profiled
+    prefill and decode step by family (the routed experts' products, the
+    dispatch and combine and the routing named apart by the op that
+    launched them), and a profiled generate: each kernel's device ms and
+    kernels. Returns the measurements and the parameters (phase 22 serves
+    them)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import generate, make_serve_step, prefill_fused
+    cfg = get_config(MOE_ARCH)
+    params = moe_params(cfg)
+    prompts = ragged_prompts(cfg.vocab_size, SERVE_SEED + 1)
+    kw = dict(max_new_tokens=SERVE_NEW, prompt_lens=PROMPT_LENS)
+    generate(params, cfg, prompts, **kw)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, n = cfg.n_layers, SERVE_NEW
+    want = want_launches(flash_attention=L, flash_decode=L * (n - 1),
+                         rmsnorm_residual=(2 * L + 1) * n, swiglu=L * n)
+    log(f"  generate: out {tuple(out.shape)} wall {wall * 1e3:.1f} ms "
+        f"({SERVE_B * n / wall:.1f} new tokens/s end to end), peak memory "
+        f"{peak:.2f} GiB; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{MOE_ARCH} launches {launches}, want {want}")
+    if tuple(out.shape) != (SERVE_B, SERVE_P + n) or \
+            not bool((out[:, SERVE_P:] < cfg.vocab_size).all()) or \
+            not bool((out[:, SERVE_P:] >= 0).all()) or \
+            not torch.equal(out[:, :SERVE_P], prompts):
+        raise AssertionError("generate's output is malformed")
+
+    # a second run, its assignments counted: the same tokens bit for bit
+    with drops_counted({}, SERVE_P) as counts:
+        again = generate(params, cfg, prompts, **kw)
+    same = torch.equal(again, out)
+    shares = drop_shares(counts)
+    C_pre, C_dec = (cfg.moe.tokens_capacity(SERVE_P),
+                    cfg.moe.tokens_capacity(SERVE_B))
+    log(f"  a second generate: tokens {'bit-equal' if same else 'DIFFERENT'}"
+        f"; dropped assignments: prefill {shares['prefill']:.4f} (C = "
+        f"{C_pre} a sequence of {SERVE_P}, mean load "
+        f"{SERVE_P * cfg.moe.top_k / cfg.moe.n_experts:.1f}), decode "
+        f"{shares['decode']:.4f} (C = {C_dec}: the {SERVE_B} rows pool)")
+    if not same:
+        raise AssertionError("two generate runs gave different tokens")
+
+    # prefill and decode times (CUDA events, warm)
+    off = serve_offsets(PROMPT_LENS, SERVE_P)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    pre = []
+    for _ in range(3):
+        cache = TT.init_cache(cfg, SERVE_B, SERVE_P + n)
+        start.record()
+        last, cache = prefill_fused(params, cfg, prompts, cache, offsets=off)
+        end.record()
+        torch.cuda.synchronize()
+        pre.append(start.elapsed_time(end))
+    step = make_serve_step(cfg)
+    tok = last.argmax(-1)[:, None]
+    start.record()
+    for i in range(n - 1):
+        tok, cache = step(params, cache, tok, SERVE_P + i, offsets=off)
+    end.record()
+    torch.cuda.synchronize()
+    dec = start.elapsed_time(end) / (n - 1)
+    prefill_ms = sorted(pre)[1]
+    log(f"  prefill {prefill_ms:.2f} ms (runs {[round(t, 2) for t in pre]}) "
+        f"for {SERVE_B}x{SERVE_P} tokens; decode {dec:.3f} ms a step "
+        f"({SERVE_B / dec * 1e3:.1f} tokens/s at B={SERVE_B})")
+    breakdown = {
+        "decode step": family_profile("decode step", lambda: step(
+            params, cache, tok, SERVE_P + n - 2, offsets=off),
+            by_op=MOE_OPS),
+        "prefill": family_profile("prefill", lambda: prefill_fused(
+            params, cfg, prompts, TT.init_cache(cfg, SERVE_B, SERVE_P + n),
+            offsets=off), by_op=MOE_OPS)}
+    del cache
+    # one whole generate under the profiler: each kernel's device ms
+    busy, kernels = profile_device_ms(lambda: generate(params, cfg, prompts,
+                                                       **kw),
+                                      reps=1, warm=False, by_op=MOE_OPS)
+    fam, calls = by_family(kernels)
+    log(f"  profiled generate: device busy {busy or 0.0:.2f} ms of "
+        f"{wall * 1e3:.1f}; device ms by family "
+        f"{ {k: round(v, 3) for k, v in sorted(fam.items())} } (kernels "
+        f"{dict(sorted(calls.items()))})")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_ms": wall * 1e3,
+            "prefill_ms": prefill_ms, "decode_ms": dec, "peak_gib": peak,
+            "drop_shares": shares, "breakdown": breakdown,
+            "families": fam, "calls": calls}, params
+
+
+def phase_moe_engine(params):
+    """Phase 22: ContinuousEngine on full-width qwen2-moe-a2.7b in bf16 (the
+    parameters of phase 21): phase 10's slots, max_len and pages of 16, a
+    paged bf16 pool, greedy, the first MOE_ENGINE_REQUESTS requests of
+    ENGINE_TRACE. Every request must complete; the launch counters must
+    show exactly 24 flash_decode_paged launches a step, 24 flash_attention
+    launches an admission, 49 rmsnorm_residual and 24 swiglu launches a
+    pass, and no flash_decode launch. Every slot decodes every step, idle
+    ones too, and takes decode capacity as in the reference. Useful
+    tokens/s, then the run again under the profiler: the paged kernel's
+    device ms over the run, its count checked against the counter."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ContinuousEngine, poisson_trace
+    cfg = get_config(MOE_ARCH)
+    L = cfg.n_layers
+    trace = poisson_trace(cfg, **ENGINE_TRACE)[:MOE_ENGINE_REQUESTS]
+    kw = dict(num_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+              layout="paged", page_size=ENGINE_PAGE)
+    log(f"engine {MOE_ARCH} bf16: {kw}, default pool; the first "
+        f"{len(trace)} requests of {ENGINE_TRACE}: prompts "
+        f"{[len(r.prompt) for r in trace]}, "
+        f"{sum(r.max_new_tokens for r in trace)} tokens asked for")
+    eng = ContinuousEngine(params, cfg, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    comps = eng.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    st = eng.stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, admits = int(st["steps"]), len(trace)
+    want = want_launches(flash_decode_paged=L * steps,
+                         flash_attention=L * admits,
+                         rmsnorm_residual=(2 * L + 1) * (steps + admits),
+                         swiglu=L * (steps + admits))
+    log(f"  {ENGINE_SLOTS} slots: { {k: round(v, 3) for k, v in st.items()} }"
+        f"; wall {wall:.2f} s; peak memory {peak:.2f} GiB; launches "
+        f"{launches}")
+    toks = {i: c.tokens for i, c in comps.items()}
+    bad = [r.id for r in trace if len(toks.get(r.id, ())) != r.max_new_tokens
+           or not all(0 <= t < cfg.vocab_size for t in toks[r.id])]
+    if sorted(toks) != [r.id for r in trace] or bad:
+        raise AssertionError(f"requests incomplete or out of vocabulary: "
+                             f"{bad}")
+    if launches != want:
+        raise AssertionError(f"engine launches {launches}, want {want}")
+    del eng
+    torch.cuda.empty_cache()
+    for attempt in range(2):
+        eng = ContinuousEngine(params, cfg, **kw)
+        reset_all_launches()
+        busy, kernels = profile_device_ms(lambda: eng.run(trace), reps=1,
+                                          warm=False, host=False, tries=1)
+        fam, calls = by_family(kernels)
+        paged = all_launches()["flash_decode_paged"]
+        if calls.get("flash_decode_paged") == paged:
+            break
+        msg = (f"the profile holds {calls.get('flash_decode_paged')} paged "
+               f"decode kernels, the counter {paged}")
+        if attempt == 1:
+            raise AssertionError(msg)
+        log(f"  {msg}; profiling the run again")
+        del eng
+    log(f"  profiled run: device busy {busy or 0.0:.1f} ms (idle share "
+        f"{1 - (busy or 0.0) / 1e3 / st['elapsed_s']:.3f} of the unprofiled "
+        f"run's {st['elapsed_s']:.2f} s); device ms by family "
+        f"{ {k: round(v, 3) for k, v in sorted(fam.items())} }")
+    del eng
+    # one profiled decode step with every request admitted at once
+    eng = ContinuousEngine(params, cfg, **kw)
+    step, prof = eng.step, {}
+
+    def profiled_step():
+        if eng.steps == 8:
+            prof.update(family_profile(
+                f"engine decode step ({int(eng.active.sum())} active rows "
+                f"of {ENGINE_SLOTS})", step, by_op=MOE_OPS))
+            raise _Stop
+        step()
+
+    eng.step = profiled_step
+    try:
+        eng.run([dataclasses.replace(r, arrival=0.0) for r in trace])
+    except _Stop:
+        pass
+    del eng
+    gc.collect()        # the patched step holds a cycle with eng
+    torch.cuda.empty_cache()
+    return {"stats": st, "wall_s": wall, "peak_gib": peak,
+            "launches": launches, "families": fam, "calls": calls,
+            "step_profile": prof}
+
+
+def phase_moe_train():
+    """Phase 23: qwen2-moe-a2.7b training at full width with the depth cut
+    to MOE_TRAIN_LAYERS (bf16, random weights from SERVE_SEED, f32
+    momentum, B=8 x T=512 of token_lm, lr and clip as phase 13; one warm
+    and TRAIN_STEPS timed steps): a step's launch counters must read
+    exactly 5/5 rmsnorm_residual and its backward (two a layer and the
+    final norm), 2/2 swiglu and its backward (the shared expert), 2/2
+    flash_attention_rope and flash_attention_backward, nothing else; the
+    loss must be finite and fall; a remat=True step from the same state
+    must give the same loss and parameters within BF16_TOL. Step ms,
+    tokens/s, peak memory, moe_aux, and a profiled step by family whose
+    training kernels' counts must match the counters."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.data import lm_sequences, token_lm
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import make_lm_train_step
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              body_repeats=MOE_TRAIN_LAYERS)
+    L = cfg.n_layers
+    params = moe_params(cfg)
+    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
+                                 n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
+    batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
+    lb = LargeBatchConfig(batch_size=TRAIN_B, base_batch_size=TRAIN_B,
+                          grad_clip=1.0)
+    regime = Regime(base_lr=TRAIN_LR, total_steps=100, drop_every=100)
+    step_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True)
+    state = (params, sgd.init(params))
+    del params
+    want = want_launches(rmsnorm_residual=2 * L + 1,
+                         rmsnorm_residual_backward=2 * L + 1, swiglu=L,
+                         swiglu_backward=L, flash_attention_rope=L,
+                         flash_attention_backward=L)
+    losses, auxes, times, launches = [], [], [], None
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:      # only this step's input state is held here
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_all_launches()
+        if i == TRAIN_STEPS:
+            prev = state        # the last step's input, for the remat step
+        t0 = time.perf_counter()
+        p2, o2, m = step_fn(*state, batch, i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            launches = all_launches()
+        losses.append(m["loss"])
+        auxes.append(m["moe_aux"])
+        state = (p2, o2)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak, step_peak = peak_bytes / 2 ** 30, (peak_bytes - base) / 2 ** 30
+    losses = torch.stack(losses).tolist()
+    auxes = torch.stack(auxes).tolist()
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    tok_s = TRAIN_B * TRAIN_T / step_ms * 1e3
+    log(f"  train {cfg.name} ({L} of {get_config(MOE_ARCH).n_layers} "
+        f"layers, full width) bf16 "
+        f"B={TRAIN_B} T={TRAIN_T} lr {TRAIN_LR}: step ms "
+        f"{[round(t, 1) for t in times]} (first is the warm step), median "
+        f"{step_ms:.1f} ms, {tok_s:.0f} tokens/s, peak memory {peak:.2f} "
+        f"GiB ({step_peak:.2f} above the step's input state); losses "
+        f"{[round(x, 4) for x in losses]}; moe_aux "
+        f"{[round(x, 4) for x in auxes]}; launches a step {launches}")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses + auxes) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+    # remat: the last step again from its input state, blocks recomputed
+    remat_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True,
+                                  remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # also holds the last output
+    rp, _, rm = remat_fn(*prev, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    remat_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    diff, bad, equal = 0.0, [], True
+    for i, (a, b) in enumerate(zip(tree.leaves(rp), tree.leaves(state[0]))):
+        equal = equal and torch.equal(a, b)
+        a, b = a.float(), b.float()
+        diff = max(diff, float((a - b).abs().max()))
+        if bool(((a - b).abs() > BF16_TOL + BF16_TOL * b.abs()).any()):
+            bad.append(i)
+    loss_diff = abs(float(rm["loss"]) - losses[-1])
+    log(f"  remat step: loss {float(rm['loss']):.6f} vs {losses[-1]:.6f} "
+        f"(diff {loss_diff:.3e}), largest parameter difference {diff:.3e} "
+        f"({'bit-equal' if equal and loss_diff == 0 else 'not bit-equal'}),"
+        f" peak memory {remat_peak:.2f} GiB above its input state (plain "
+        f"step {step_peak:.2f})")
+    if bad or loss_diff > BF16_TOL * (1 + abs(losses[-1])):
+        raise AssertionError(f"remat step differs: loss {loss_diff}, "
+                             f"leaves {bad[:8]}")
+    del rp, rm, prev
+
+    # a profiled step whose training kernels' counts match the counters;
+    # late in a run the profiler has lost a window's first events, so a
+    # window that lost some is profiled again, three windows at most
+    want_calls = {fam: per_call * launches[name] for name, (
+        *_, fam, per_call) in TRAIN_KERNELS.items()}
+    for attempt in range(3):
+        prof = family_profile("train step", lambda: step_fn(
+            *state, batch, TRAIN_STEPS + 1), by_op=MOE_OPS)
+        got = {fam: prof["calls"].get(fam, 0) for fam in want_calls}
+        if got == want_calls:
+            break
+        log(f"  the profiled step holds {got} training kernels, the "
+            f"counters {want_calls}")
+    else:
+        raise AssertionError("three profiled steps lost kernel events")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "times": times,
+            "tok_s": tok_s, "peak_gib": peak, "step_peak_gib": step_peak,
+            "remat_peak_gib": remat_peak, "losses": losses, "aux": auxes,
+            "remat_diff": diff, "breakdown": prof}
+
+
+@contextlib.contextmanager
+def routing_recorded(log_):
+    """Within: each MoE layer appends its routing input, router weights,
+    topi, slot, keep and C (on the host) to ``log_``."""
+    from repro_torch.models import moe as MOE
+    real = (MOE._route, MOE._slots)
+
+    def route(router_w, x, m, losses=True):
+        out = real[0](router_w, x, m, losses)
+        log_.append({"x": x.float().cpu(), "router": router_w.float().cpu(),
+                     "topi": out[0].cpu()})
+        return out
+
+    def slots(topi, C):
+        slot, keep = real[1](topi, C)
+        log_[-1].update(slot=slot.cpu(), keep=keep.cpu(), C=C)
+        return slot, keep
+
+    MOE._route, MOE._slots = route, slots
+    try:
+        yield log_
+    finally:
+        MOE._route, MOE._slots = real
+
+
+def same_routing(label, a, b):
+    """Layer by layer: topi equal but for near-ties (two of a token's k + 1
+    largest probabilities within NEAR_TIE, from ``a``'s inputs in f64;
+    counted and printed), then C, and slot and keep on every sequence
+    routed alike. Raises on any other difference."""
+    import torch
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"{label}: {len(a)} and {len(b)} MoE layers")
+    flips = 0
+    for i, (x, y) in enumerate(zip(a, b)):
+        diff = (x["topi"] != y["topi"]).any(-1)
+        if diff.any():
+            k = x["topi"].shape[-1]
+            p = torch.softmax(x["x"].double() @ x["router"].double(), -1)
+            top = p.sort(-1, descending=True).values[..., :k + 1]
+            tie = ((top[..., :-1] - top[..., 1:]) < NEAR_TIE).any(-1)
+            if (diff & ~tie).any():
+                raise AssertionError(
+                    f"{label} layer {i}: {int((diff & ~tie).sum())} tokens "
+                    f"routed differently with no near-tie")
+            flips += int(diff.sum())
+        alike = ~diff.any(-1)
+        if x["C"] != y["C"] or \
+                not torch.equal(x["slot"][alike], y["slot"][alike]) or \
+                not torch.equal(x["keep"][alike], y["keep"][alike]):
+            raise AssertionError(f"{label} layer {i}: slots or keep differ")
+    drops = sum(int((~x["keep"]).sum()) for x in a)
+    total = sum(x["keep"].numel() for x in a)
+    log(f"  {label}: routing equal over {len(a)} MoE layers ({flips} "
+        f"near-tie tokens routed differently); {drops} of {total} "
+        f"assignments dropped")
+    return flips
+
+
+def phase_moe_cuda_vs_cpu():
+    """Phase 24: reduced qwen2-moe-a2.7b and kimi-k2-1t-a32b in f32, the
+    same parameters on the card (kernels) and the CPU (plain versions): the
+    prefill's routing equal layer by layer (the near-tie rule), prefill
+    logits within TOL, greedy tokens of ragged prompts equal; one
+    make_lm_train_step step: loss within LOSS_TOL, parameters within
+    TOL."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import sgd
+    from repro_torch.serving import generate
+    from repro_torch.train.trainer import make_lm_train_step
+    for name in MOE_REDUCED:
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        p_cpu = TT.init_params(3, cfg, device="cpu")
+        p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+        P, lens = 40, (40, 23, 9, 1)
+        g = torch.Generator().manual_seed(4)
+        prompts = torch.randint(0, cfg.vocab_size, (len(lens), P),
+                                generator=g)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 100), generator=g)
+        lb = LargeBatchConfig(batch_size=4, base_batch_size=4, grad_clip=1.0)
+        regime = Regime(base_lr=0.05, total_steps=10, drop_every=10)
+        outs, logits, steps, routes = {}, {}, {}, {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            outs[dev] = generate(p, cfg, prompts, max_new_tokens=8,
+                                 prompt_lens=lens, device=dev).cpu()
+            cache = TT.init_cache(cfg, len(lens), P + 1, device=dev)
+            off = torch.tensor([P - L for L in lens], device=dev,
+                               dtype=torch.int32)
+            with routing_recorded([]) as routes[dev]:
+                lg, _ = TT.prefill_forward(p, cfg, prompts.to(dev), cache,
+                                           offsets=off)
+            logits[dev] = lg.cpu()
+            step = make_lm_train_step(cfg, lb, regime,
+                                      use_kernels=dev == "cuda")
+            p2, _, m = step(p, sgd.init(p), {"tokens": tokens.to(dev)}, 0)
+            steps[dev] = (float(m["loss"]), float(m["moe_aux"]),
+                          [t.cpu() for t in tree.leaves(p2)])
+        log(f"moe cuda vs cpu: {cfg.name} f32, B={len(lens)} P={P} ragged "
+            f"{lens}, 8 new tokens; one train step B=4 T=100: loss "
+            f"{steps['cuda'][0]:.7f} vs {steps['cpu'][0]:.7f}, moe_aux "
+            f"{steps['cuda'][1]:.7f} vs {steps['cpu'][1]:.7f}")
+        same_routing(f"{cfg.name} prefill routing", routes["cuda"],
+                     routes["cpu"])
+        check_close("prefill logits", logits["cuda"], logits["cpu"], TOL)
+        same = torch.equal(outs["cuda"], outs["cpu"])
+        log(f"  greedy tokens {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{cfg.name}: greedy tokens differ between "
+                                 f"cuda and cpu")
+        check_close("train step loss", torch.tensor(steps["cuda"][0]),
+                    torch.tensor(steps["cpu"][0]), LOSS_TOL)
+        check_close("train step params",
+                    torch.cat([t.reshape(-1) for t in steps["cuda"][2]]),
+                    torch.cat([t.reshape(-1) for t in steps["cpu"][2]]), TOL)
+
+
+def moe_kernel_line(serve, engine, train):
+    """The MoE path's kernels: device ms and launches in the profiled
+    generate (B3, B5, B9, B12), the profiled engine run (B13) and the
+    profiled 2-layer train step (B4, B6, B7, B8)."""
+    fams = {"rmsnorm_residual": ("rmsnorm_residual", serve),
+            "swiglu": ("swiglu", serve), "flash_attention":
+            ("flash_fwd", serve), "flash_decode": ("flash_decode", serve),
+            "flash_decode_paged": ("flash_decode_paged", engine)}
+    rows = {name: (src["families"].get(fam, 0.0), src["launches"][name])
+            for name, (fam, src) in fams.items()}
+    for name, (*_, fam, _) in TRAIN_KERNELS.items():
+        rows[name] = (train["breakdown"]["families"].get(fam, 0.0),
+                      train["launches"][name])
+    return rows
+
+
+def moe_summary(ms_, me_, mt_):
+    """The slice's end-to-end numbers and its kernels' line."""
+    from repro_torch.configs import get_config
+    log(f"serve {MOE_ARCH} (B={SERVE_B}, P={SERVE_P} ragged, {SERVE_NEW} new "
+        f"tokens): generate {ms_['wall_ms']:.1f} ms, prefill "
+        f"{ms_['prefill_ms']:.2f} ms, decode {ms_['decode_ms']:.3f} ms a "
+        f"step, {SERVE_B * SERVE_NEW / ms_['wall_ms'] * 1e3:.1f} new "
+        f"tokens/s, peak {ms_['peak_gib']:.2f} GiB, dropped assignments "
+        f"{ {k: round(v, 4) for k, v in ms_['drop_shares'].items()} }; "
+        f"engine ({MOE_ENGINE_REQUESTS} requests, {me_['stats']['steps']:.0f}"
+        f" steps) {me_['stats']['useful_tok_s']:.1f} useful tokens/s, "
+        f"{me_['launches']['flash_decode_paged']} flash_decode_paged "
+        f"launches; train {MOE_TRAIN_LAYERS} of "
+        f"{get_config(MOE_ARCH).n_layers} layers "
+        f"(bf16, "
+        f"B={TRAIN_B}, T={TRAIN_T}): median step {mt_['step_ms']:.1f} ms, "
+        f"{mt_['tok_s']:.0f} tokens/s, peak {mt_['peak_gib']:.2f} GiB, "
+        f"moe_aux {mt_['aux'][-1]:.4f}")
+    log(f"moe path kernels (device ms and launches: generate, engine run, "
+        f"train step): " + ", ".join(
+            f"{name} {ms:.3f} ms {n} launches" for name, (ms, n) in
+            moe_kernel_line(ms_, me_, mt_).items()))
+
+
 def main() -> int:
     try:
         import torch
@@ -3769,6 +4416,20 @@ def main() -> int:
             lap("sweep")
             lm_sweeps = phase_lm_sweeps(tmp)
             lap("lm sweeps")
+        # slice 7: the MoE family
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_serve, moe_p = phase_moe_serve()
+        lap("moe serve")
+        moe_engine = phase_moe_engine(moe_p)
+        del moe_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("moe engine")
+        moe_train = phase_moe_train()
+        lap("moe train")
+        phase_moe_cuda_vs_cpu()
+        lap("moe cuda vs cpu")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3839,6 +4500,7 @@ def main() -> int:
         f"{sweeps['resumed_s']:.2f} s; skip pass {sweeps['skip_s']:.2f} s; "
         f"lm-smoke sweeps " + ", ".join(f"{a} {s:.1f} s"
                                         for a, s in lm_sweeps.items()))
+    moe_summary(moe_serve, moe_engine, moe_train)
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
         f" (seconds by part: {took})")
     log(smi)

@@ -1,10 +1,16 @@
 """LayerSpec interpreter (the port of ``repro.models.blocks``): one block
 is a pre-norm sequence mixer (attention ``mixer="attn"``, sliding-window
-``"swa"`` or the Mamba ``"ssm"``) and, where the spec has one, a dense
-SwiGLU sublayer (``ff="dense"``; an ssm block of falcon-mamba has
-``ff="none"``: the mixer is the whole block), run with no cache (the
-training forward, optionally rematerialized block by block) or against its
-cache in fused-prefill or one-token decode mode. An ssm block's cache is
+``"swa"`` or the Mamba ``"ssm"``) and, where the spec has one, a
+feed-forward sublayer: the dense SwiGLU (``ff="dense"``) or the
+Mixture-of-Experts (``ff="moe"``, ``models/moe.py``); an ssm block of
+falcon-mamba has ``ff="none"``: the mixer is the whole block. A block runs
+with no cache (the training forward, optionally rematerialized block by
+block) or against its cache in fused-prefill or one-token decode mode. An
+MoE block with no cache returns its router's losses (``moe_aux``,
+``moe_z``), which the stack sums in layer order; zero without MoE blocks,
+as the reference's ``ZERO_AUX``. A block without a router, or against a
+cache (prefill and decode drop the losses), adds no operation for them.
+An ssm block's cache is
 ``{"ssm": {"h", "conv"}}``: the f32 state (B, d_inner, d_state) and the
 last ``d_conv - 1`` inputs (B, d_conv - 1, d_inner), f32 as in the
 reference.
@@ -14,8 +20,13 @@ holds one tree per layer: ``stack["body"][j][i]`` is repeat ``i`` of body
 slot ``j`` (``repro_torch.convert.lm_to_torch`` unstacks), and a Python
 loop runs the layers in the reference's order.
 
-Cross-attention and MoE blocks and tensor parallelism wait for their
-slices: reaching one raises ``NotImplementedError`` naming it.
+With kernels on, an MoE block's pre-ff norm runs in the fused residual
+norm kernel and its shared expert in the SwiGLU kernel, as a dense block's
+do (the reference calls both plainly there; each kernel computes the same
+function, and no plain version runs on the card's kernel path).
+
+Cross-attention blocks and tensor parallelism wait for their slices:
+reaching one raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
@@ -36,8 +48,19 @@ def _supported(spec: LayerSpec) -> None:
     if spec.cross_attn:
         raise NotImplementedError("cross-attention blocks come with the "
                                   "encoder/VLM slice")
-    if spec.ff == "moe":
-        raise NotImplementedError("MoE blocks come with the MoE slice")
+
+
+def _sum_aux(acc: Dict[str, Tensor], new: Dict[str, Tensor]
+             ) -> Dict[str, Tensor]:
+    """``acc + new`` key by key; a key only one of them holds is kept."""
+    return {**acc, **{k: acc[k] + v if k in acc else v
+                      for k, v in new.items()}}
+
+
+def _with_zeros(aux: Dict[str, Tensor], device) -> Dict[str, Tensor]:
+    """The stack's losses, zero where no block gave one (``ZERO_AUX``)."""
+    zero = torch.zeros((), device=device)
+    return {"moe_aux": zero, "moe_z": zero, **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +82,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     if spec.ff == "dense":
         p["norm2"] = L.norm_init(cfg, cfg.d_model, dev)
         p["ff"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    elif spec.ff == "moe":
+        p["norm2"] = L.norm_init(cfg, cfg.d_model, dev)
+        p["ff"] = MOE.moe_init(gen, cfg, dtype)
     return p
 
 
@@ -90,12 +116,15 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
                 pos: Union[int, Tensor, None] = None, decode: bool = False,
                 causal: bool = True, use_kernels: bool = False,
                 offsets: Optional[Tensor] = None
-                ) -> Tuple[Tensor, Optional[Params]]:
+                ) -> Tuple[Tensor, Optional[Params], Dict[str, Tensor]]:
     """Apply one block. With no cache it is the training forward over
     ``positions``; against a cache, ``decode=True`` is one token at ``pos``
     and otherwise the fused prefill over ``positions`` fills the cache.
-    Returns (x, cache), the cache updated in place (None without one)."""
+    Returns (x, cache, aux), the cache updated in place (None without
+    one); aux holds an MoE block's router losses with no cache, else
+    nothing (prefill and decode drop them)."""
     _supported(spec)
+    aux: Dict[str, Tensor] = {}
     y_mix = None
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
@@ -135,7 +164,7 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
             # state was rounded through bf16 on the way)
             for name, leaf in cache["ssm"].items():
                 leaf.copy_(sc[name])
-    if spec.ff == "dense":
+    if spec.ff in ("dense", "moe"):
         # the mixer's residual add fused with the ff pre-norm
         if y_mix is not None:
             h, x = L.norm_residual_apply(cfg, params["norm2"], x, y_mix,
@@ -143,10 +172,16 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
         else:
             h = L.norm_apply(cfg, params["norm2"], x,
                              use_kernels=use_kernels)
-        x = x + L.mlp_apply(params["ff"], h, use_kernels=use_kernels)
+        if spec.ff == "dense":
+            x = x + L.mlp_apply(params["ff"], h, use_kernels=use_kernels)
+        else:
+            y, aux = MOE.moe_apply(params["ff"], cfg, h,
+                                   use_kernels=use_kernels,
+                                   losses=cache is None)
+            x = x + y
     elif y_mix is not None:
         x = x + y_mix
-    return x, cache
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -208,24 +243,31 @@ def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
                 causal: bool = True, use_kernels: bool = False,
                 remat: bool = False,
                 offsets: Optional[Tensor] = None
-                ) -> Tuple[Tensor, Optional[Params]]:
+                ) -> Tuple[Tensor, Optional[Params], Dict[str, Tensor]]:
     """Run head + body + tail: with no cache, the training forward over
-    ``positions``; otherwise against ``cache`` (updated in place).
+    ``positions``; otherwise against ``cache`` (updated in place). Returns
+    (x, cache, aux), the blocks' auxiliary losses summed in layer order.
 
     ``remat=True`` (no cache) recomputes each block in the backward
     (``torch.utils.checkpoint``, non-reentrant), the counterpart of the
     reference's ``jax.checkpoint(nothing_saveable)``: only each block's
-    input stays alive between the passes."""
+    input stays alive between the passes; a checkpointed block returns
+    its output and its aux losses."""
     if cache is None:
+        aux: Dict[str, Tensor] = {}
         for spec, p in each_layer(params, cfg):
             def fn(xb, p=p, spec=spec):
-                return block_apply(p, cfg, spec, xb, positions=positions,
-                                   causal=causal, use_kernels=use_kernels)[0]
-            x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
-        return x, None
+                xo, _, a = block_apply(p, cfg, spec, xb, positions=positions,
+                                       causal=causal,
+                                       use_kernels=use_kernels)
+                return xo, a
+            x, a = (checkpoint(fn, x, use_reentrant=False) if remat
+                    else fn(x))
+            aux = _sum_aux(aux, a)
+        return x, None, _with_zeros(aux, x.device)
     for (spec, p), (_, c) in zip(each_layer(params, cfg),
                                  each_layer(cache, cfg)):
-        x, _ = block_apply(p, cfg, spec, x, cache=c, positions=positions,
-                           pos=pos, decode=decode, use_kernels=use_kernels,
-                           offsets=offsets)
-    return x, cache
+        x, _, _ = block_apply(p, cfg, spec, x, cache=c, positions=positions,
+                              pos=pos, decode=decode,
+                              use_kernels=use_kernels, offsets=offsets)
+    return x, cache, _with_zeros({}, x.device)

@@ -2,8 +2,9 @@
 embedding, the block stack and the LM head.
 
 - Training: ``forward`` (logits), ``hidden_states`` and ``lm_loss`` (next-
-  token cross-entropy, dense or vocab-chunked), differentiable; the
-  reference's default ``use_kernels=False`` here too.
+  token cross-entropy, dense or vocab-chunked, plus the MoE router losses),
+  differentiable; the reference's default ``use_kernels=False`` here too.
+  Prefill and decode drop the router losses, as the reference does.
 - Serving: a fused prefill and a one-token decode step against KV caches,
   through the kernels by default (``use_kernels=True``, head-major
   caches); ``use_kernels=False`` is the reference's plain path over
@@ -90,9 +91,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: Tensor,
     (B,) are the left pads of ragged prompts: RoPE positions shift to
     ``pos - offsets`` and the padded slots are masked."""
     x = F.embedding(tokens, params["embed"]).to(compute_dtype(cfg))
-    x, cache = B.stack_apply(params["stack"], cfg, x, cache=cache, pos=pos,
-                             decode=True, use_kernels=use_kernels,
-                             offsets=offsets)
+    x, cache, _ = B.stack_apply(params["stack"], cfg, x, cache=cache,
+                                pos=pos, decode=True,
+                                use_kernels=use_kernels, offsets=offsets)
     return _logits(params, cfg, x, use_kernels), cache
 
 
@@ -115,9 +116,9 @@ def prefill_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     if not cfg.causal:
         raise NotImplementedError("non-causal stacks come with the encoder "
                                   "slice")
-    x, cache = B.stack_apply(params["stack"], cfg, x, cache=cache,
-                             positions=positions, decode=False,
-                             use_kernels=use_kernels, offsets=offsets)
+    x, cache, _ = B.stack_apply(params["stack"], cfg, x, cache=cache,
+                                positions=positions, decode=False,
+                                use_kernels=use_kernels, offsets=offsets)
     return _logits(params, cfg, x[:, -1:], use_kernels), cache
 
 
@@ -141,14 +142,14 @@ def hidden_states(params: Params, cfg: ModelConfig, tokens: Tensor, *,
                   use_kernels: bool = False, remat: bool = False
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The stack up to (but excluding) the LM head: the final norm's
-    output (B, S, d) and the auxiliary losses (zero: no MoE blocks yet)."""
+    output (B, S, d) and the auxiliary losses summed over the blocks
+    (``moe_aux``, ``moe_z``; zero without MoE blocks)."""
     x, positions = _embed_positions(params, cfg, tokens)
-    x, _ = B.stack_apply(params["stack"], cfg, x, positions=positions,
-                         causal=cfg.causal, use_kernels=use_kernels,
-                         remat=remat)
+    x, _, aux = B.stack_apply(params["stack"], cfg, x, positions=positions,
+                              causal=cfg.causal, use_kernels=use_kernels,
+                              remat=remat)
     x = L.norm_apply(cfg, params["final_norm"], x, use_kernels=use_kernels)
-    zero = torch.zeros((), device=x.device)
-    return x, {"moe_aux": zero, "moe_z": zero}
+    return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: Tensor, *,
@@ -217,9 +218,10 @@ def _chunked_ce(cfg: ModelConfig, x: Tensor, head: Tensor, targets: Tensor,
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
             use_kernels: bool = False, remat: bool = False,
             ce_chunk: int = 0) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Next-token cross-entropy of ``batch["tokens"]`` (B, S). ``ce_chunk >
-    0`` (dividing the padded vocab) takes the vocab-chunked streaming CE.
-    Returns (loss, {"ce", "moe_aux", "moe_z"})."""
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S), plus, for an
+    MoE config, ``router_aux_weight * moe_aux + router_z_weight * moe_z``.
+    ``ce_chunk > 0`` (dividing the padded vocab) takes the vocab-chunked
+    streaming CE. Returns (loss, {"ce", "moe_aux", "moe_z"})."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:]
     head = params["embed"] if cfg.tie_embeddings else params["head"]
@@ -231,4 +233,9 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
         logits, aux = forward(params, cfg, tokens, use_kernels=use_kernels,
                               remat=remat)
         ce = _dense_ce(cfg, logits[:, :-1], targets)
-    return ce, {"ce": ce, **aux}
+    m = cfg.moe
+    total = ce
+    if m is not None:
+        total = (total + m.router_aux_weight * aux["moe_aux"]
+                 + m.router_z_weight * aux["moe_z"])
+    return total, {"ce": ce, **aux}

@@ -1,7 +1,9 @@
 """The port's run-state checkpoints held to the JAX package's
 (``repro.checkpoint``): the same npz entry names, and vision params,
 momentum and BN state (F1 and a reduced ResNet) and reduced-LM params
-with SGD and Adam states (qwen3-1.7b, falcon-mamba-7b) written by either
+with SGD and Adam states (qwen3-1.7b, falcon-mamba-7b, and the MoE
+models qwen2-moe-a2.7b and kimi-k2-1t-a32b, whose stacked experts are
+(R, E, d, f) and whose shared expert is a nested tree) written by either
 package restore in the other bit for bit; the port reads the JAX package's
 sharded files (one process, and pieces of two processes); the meta and the
 ``latest`` pointer; a missing checkpoint, ``sharded=True`` and an unknown
@@ -39,7 +41,8 @@ VISION = {
                                   channels=(4, 8), blocks_per_stage=1,
                                   ghost_batch_size=16),
 }
-ARCHS = ("qwen3-1.7b", "falcon-mamba-7b")
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "qwen2-moe-a2.7b",
+         "kimi-k2-1t-a32b")
 
 
 def _np(t):

@@ -450,7 +450,8 @@ def test_killed_sweep_restarts_to_identical_records(tmp_path):
     assert not os.path.exists(lb_ck)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
+                                  "qwen2-moe-a2.7b"])
 def test_lm_runner_path(tmp_path, arch):
     kw = dict(lm_arch=arch, lm_seq_len=16, lm_n_tokens=4096,
               lm_vocab_size=64, total_steps=4, drop_every=2, eval_every=2,

@@ -230,8 +230,8 @@ def test_bf16_conv_state_is_rounded_through_bf16_and_kept_in_f32():
     assert torch.equal(conv, conv.bfloat16().float())
     # the second layer's last three inputs, recomputed
     x = torch.nn.functional.embedding(toks, p["embed"])
-    h, _ = TB.block_apply(p["stack"]["body"][0][0], cfg, cfg.body_pattern[0],
-                          x)
+    h, _, _ = TB.block_apply(p["stack"]["body"][0][0], cfg,
+                             cfg.body_pattern[0], x)
     hn = TL.rmsnorm_apply(p["stack"]["body"][0][1]["norm1"], h)
     xin, _ = TSSM._split_in(p["stack"]["body"][0][1]["mixer"], cfg, hn)
     assert torch.equal(conv, xin[:, -3:].float())
