@@ -185,7 +185,8 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    decode ms a step, tokens/s, peak memory, a profiled prefill and decode
    step by family (the routed experts' ``bmm``, the dispatch's and
    combine's index copies and the routing named by the op that launched
-   them, MOE_OPS), and a profiled generate: device ms by family;
+   them inside the MoE layer, MOE_OPS and MOE_SCOPES), and a profiled
+   generate: device ms by family;
 22. ContinuousEngine on the same parameters: phase 10's slots, max_len
    and pages, a bf16 pool, the first MOE_ENGINE_REQUESTS requests of
    ENGINE_TRACE; every request completes; exactly 24 flash_decode_paged
@@ -200,8 +201,9 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    memory, moe_aux, a profiled step whose kernel counts match the
    counters;
 24. reduced qwen2-moe-a2.7b and kimi-k2-1t-a32b in f32, card (kernels)
-   against CPU (plain versions) from the same parameters: the prefill's
-   routing equal layer by layer (topi, then slot, keep and the capacity;
+   against CPU (the plain model path, ``use_kernels=False``) from the same
+   parameters: the ragged prefill's routing equal layer by layer, left
+   pads included (topi, then slot, keep and the capacity;
    a token routed differently fails unless two of its k + 1 largest
    probabilities are within NEAR_TIE, and such tokens are counted),
    prefill logits within TOL, greedy tokens of ragged prompts equal, one
@@ -793,27 +795,43 @@ FLASH_EDGES = [((1, 2, 2, 17, 32), True, None, None),
 
 def op_labels(events, by_op):
     """{correlation id of a host op: label} for every op that runs inside
-    an op named in ``by_op`` on the same thread (itself included): a
-    kernel's ``linked_correlation_id`` names the innermost op at its
-    launch, which can sit inside the named one (``index_select`` of many
-    rows runs ``gather``)."""
+    an op named in ``by_op = (ops, scopes)`` ({op name: label}) on the
+    same thread (itself included) and inside a host span named in
+    ``scopes`` (a ``record_function``, an autograd node): a kernel's
+    ``linked_correlation_id`` names the innermost op at its launch, which
+    can sit inside the named one (``index_select`` of many rows runs
+    ``gather``)."""
     import bisect
-    spans = {}
-    for ev in events:
-        if ev.device_type().name == "CPU" and ev.name() in by_op:
-            spans.setdefault(ev.start_thread_id(), []).append(
-                (ev.start_ns(), ev.end_ns(), by_op[ev.name()]))
-    for v in spans.values():
-        v.sort()
-    starts = {th: [a for a, _, _ in v] for th, v in spans.items()}
-    label = {}
-    for ev in events:
+    by_name, scopes = by_op
+
+    def spans_of(match):
+        spans = {}
+        for ev in events:
+            if ev.device_type().name == "CPU" and match(ev.name()):
+                spans.setdefault(ev.start_thread_id(), []).append(
+                    (ev.start_ns(), ev.end_ns(), ev.name()))
+        for v in spans.values():
+            v.sort()
+        return spans, {th: [a for a, _, _ in v] for th, v in spans.items()}
+
+    def enclosing(spans, starts, ev):
         th = ev.start_thread_id()
-        if ev.device_type().name != "CPU" or th not in spans:
-            continue
+        if th not in spans:
+            return None
         i = bisect.bisect_right(starts[th], ev.start_ns()) - 1
         if i >= 0 and spans[th][i][1] >= ev.end_ns():
-            label[ev.correlation_id()] = spans[th][i][2]
+            return spans[th][i][2]
+        return None
+
+    ops = spans_of(lambda name: name in by_name)
+    scoped = spans_of(lambda name: name.split(": ")[-1] in scopes)
+    label = {}
+    for ev in events:
+        if ev.device_type().name != "CPU":
+            continue
+        op = enclosing(*ops, ev)
+        if op is not None and enclosing(*scoped, ev) is not None:
+            label[ev.correlation_id()] = by_name[op]
     return label
 
 
@@ -824,9 +842,9 @@ def profile_device_ms(fn, reps: int = 10, warm: bool = True,
     after one warm call, the profiler's warmup step, unless ``warm`` is
     off; ``host=False`` records the
     device's activity only), and the kernels by name: (ms, calls, name) per
-    call. With ``by_op`` ({op name: label}, host activity on) a kernel
-    launched inside one of those ops (``op_labels``) is named "label:
-    kernel"; ``host_ops`` (a dict) receives each host event's ms a call
+    call. With ``by_op`` (``op_labels``'s, host activity on) a kernel
+    launched inside one of its ops and scopes is named "label: kernel";
+    ``host_ops`` (a dict) receives each host event's ms a call
     and count by name (nested ops each count their whole span). A
     window that comes back with no device event at all (as one has now and
     then on the card, early and late in a run) holds no reading and is
@@ -1531,8 +1549,9 @@ def decode_edge_checks(paged: bool) -> float:
     of ENGINE_PAGE through a shuffled block table):
 
     - rows at positions CHUNK - 1, CHUNK, CHUNK + 1 and 2 CHUNK (CHUNK =
-      ``FD.chunk_slots``), plain, with ragged offsets and RoPE, and with a
-      window of CHUNK: against the plain version (TOL, BF16_TOL); the paged
+      ``FD.chunk_slots``), plain, with ragged offsets and RoPE, with a
+      window of CHUNK, and with offsets past pos (rows that see no slot:
+      the mean of V): against the plain version (TOL, BF16_TOL); the paged
       kernel on a pool of q's dtype bit-equal to flash_decode;
     - a cache of S = 544 slots against the same contents padded to 1024
       (random slots past every row's pos; paged: a block table of 34 pages
@@ -1589,8 +1608,9 @@ def decode_edge_checks(paged: bool) -> float:
         # chunk edges
         q, (k, v), pt, src = cache(4, -(-(2 * n + 9) // ps) * ps)
         pos, off = ints(n - 1, n, n + 1, 2 * n), ints(0, n - 1, n, 1)
+        keyless = ints(0, n + 1, n + 2, 2 * n + 1)     # rows 1-3 see none
         for kw in (dict(), dict(offsets=off, rope_theta=cfg.rope_theta),
-                   dict(window=n)):
+                   dict(window=n), dict(offsets=keyless)):
             got = run(q, src, pt, pos, **kw)
             errs.append(check_close(
                 f"{label} positions {n - 1}..{2 * n} {sorted(kw)}",
@@ -3795,6 +3815,32 @@ MOE_OPS = {"aten::bmm": "moe_bmm",
            "aten::index_select": "moe_gather",
            "aten::_softmax": "moe_route", "aten::topk": "moe_route",
            "aten::sort": "moe_route", "aten::cummax": "moe_route"}
+# ... and only inside the MoE layer: its forward (the "moe_apply" span that
+# moe_spans opens around each call) and, in the backward, the autograd
+# nodes of its batched products and indexed reads and writes. The same ops
+# elsewhere (F.embedding's index_select) keep their kernel's own family.
+MOE_SCOPES = ("moe_apply", "BmmBackward0", "IndexSelectBackward0",
+              "IndexCopyBackward0")
+MOE_LABELS = (MOE_OPS, MOE_SCOPES)
+
+
+@contextlib.contextmanager
+def moe_spans():
+    """Every ``moe_apply`` call inside a profiler span named "moe_apply"
+    (a record_function, a few microseconds a call) while the block runs."""
+    import torch
+    from repro_torch.models import moe as MOE
+    real = MOE.moe_apply
+
+    def spanned(*args, **kwargs):
+        with torch.profiler.record_function("moe_apply"):
+            return real(*args, **kwargs)
+
+    MOE.moe_apply = spanned
+    try:
+        yield
+    finally:
+        MOE.moe_apply = real
 
 
 def moe_params(cfg):
@@ -3926,18 +3972,20 @@ def phase_moe_serve():
     log(f"  prefill {prefill_ms:.2f} ms (runs {[round(t, 2) for t in pre]}) "
         f"for {SERVE_B}x{SERVE_P} tokens; decode {dec:.3f} ms a step "
         f"({SERVE_B / dec * 1e3:.1f} tokens/s at B={SERVE_B})")
-    breakdown = {
-        "decode step": family_profile("decode step", lambda: step(
-            params, cache, tok, SERVE_P + n - 2, offsets=off),
-            by_op=MOE_OPS),
-        "prefill": family_profile("prefill", lambda: prefill_fused(
-            params, cfg, prompts, TT.init_cache(cfg, SERVE_B, SERVE_P + n),
-            offsets=off), by_op=MOE_OPS)}
-    del cache
-    # one whole generate under the profiler: each kernel's device ms
-    busy, kernels = profile_device_ms(lambda: generate(params, cfg, prompts,
-                                                       **kw),
-                                      reps=1, warm=False, by_op=MOE_OPS)
+    with moe_spans():
+        breakdown = {
+            "decode step": family_profile("decode step", lambda: step(
+                params, cache, tok, SERVE_P + n - 2, offsets=off),
+                by_op=MOE_LABELS),
+            "prefill": family_profile("prefill", lambda: prefill_fused(
+                params, cfg, prompts,
+                TT.init_cache(cfg, SERVE_B, SERVE_P + n), offsets=off),
+                by_op=MOE_LABELS)}
+        del cache
+        # one whole generate under the profiler: each kernel's device ms
+        busy, kernels = profile_device_ms(
+            lambda: generate(params, cfg, prompts, **kw), reps=1, warm=False,
+            by_op=MOE_LABELS)
     fam, calls = by_family(kernels)
     log(f"  profiled generate: device busy {busy or 0.0:.2f} ms of "
         f"{wall * 1e3:.1f}; device ms by family "
@@ -4028,9 +4076,10 @@ def phase_moe_engine(params):
 
     def profiled_step():
         if eng.steps == 8:
-            prof.update(family_profile(
-                f"engine decode step ({int(eng.active.sum())} active rows "
-                f"of {ENGINE_SLOTS})", step, by_op=MOE_OPS))
+            with moe_spans():
+                prof.update(family_profile(
+                    f"engine decode step ({int(eng.active.sum())} active "
+                    f"rows of {ENGINE_SLOTS})", step, by_op=MOE_LABELS))
             raise _Stop
         step()
 
@@ -4152,8 +4201,9 @@ def phase_moe_train():
     want_calls = {fam: per_call * launches[name] for name, (
         *_, fam, per_call) in TRAIN_KERNELS.items()}
     for attempt in range(3):
-        prof = family_profile("train step", lambda: step_fn(
-            *state, batch, TRAIN_STEPS + 1), by_op=MOE_OPS)
+        with moe_spans():
+            prof = family_profile("train step", lambda: step_fn(
+                *state, batch, TRAIN_STEPS + 1), by_op=MOE_LABELS)
         got = {fam: prof["calls"].get(fam, 0) for fam in want_calls}
         if got == want_calls:
             break
@@ -4230,11 +4280,13 @@ def same_routing(label, a, b):
 
 def phase_moe_cuda_vs_cpu():
     """Phase 24: reduced qwen2-moe-a2.7b and kimi-k2-1t-a32b in f32, the
-    same parameters on the card (kernels) and the CPU (plain versions): the
-    prefill's routing equal layer by layer (the near-tie rule), prefill
-    logits within TOL, greedy tokens of ragged prompts equal; one
-    make_lm_train_step step: loss within LOSS_TOL, parameters within
-    TOL."""
+    same parameters on the card (kernels) and the CPU (the plain model
+    path, ``use_kernels=False``: the model's own softmax attention, not
+    the kernels' plain versions), at the configs' capacity factor: the
+    ragged prefill's routing equal layer by layer, left pads included (the
+    near-tie rule), prefill logits within TOL, greedy tokens of ragged
+    prompts equal; one make_lm_train_step step: loss within LOSS_TOL,
+    parameters within TOL."""
     import torch
     from repro_torch import tree
     from repro_torch.configs import get_config
@@ -4256,17 +4308,19 @@ def phase_moe_cuda_vs_cpu():
         regime = Regime(base_lr=0.05, total_steps=10, drop_every=10)
         outs, logits, steps, routes = {}, {}, {}, {}
         for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            kern = dev == "cuda"
             outs[dev] = generate(p, cfg, prompts, max_new_tokens=8,
-                                 prompt_lens=lens, device=dev).cpu()
-            cache = TT.init_cache(cfg, len(lens), P + 1, device=dev)
+                                 prompt_lens=lens, use_kernels=kern,
+                                 device=dev).cpu()
+            cache = TT.init_cache(cfg, len(lens), P + 1, device=dev,
+                                  layout="head" if kern else "seq")
             off = torch.tensor([P - L for L in lens], device=dev,
                                dtype=torch.int32)
             with routing_recorded([]) as routes[dev]:
                 lg, _ = TT.prefill_forward(p, cfg, prompts.to(dev), cache,
-                                           offsets=off)
+                                           use_kernels=kern, offsets=off)
             logits[dev] = lg.cpu()
-            step = make_lm_train_step(cfg, lb, regime,
-                                      use_kernels=dev == "cuda")
+            step = make_lm_train_step(cfg, lb, regime, use_kernels=kern)
             p2, _, m = step(p, sgd.init(p), {"tokens": tokens.to(dev)}, 0)
             steps[dev] = (float(m["loss"]), float(m["moe_aux"]),
                           [t.cpu() for t in tree.leaves(p2)])

@@ -7,9 +7,10 @@ an adjoint pair (``region_in``/``region_out``, ``mean_in_fwd``). Here every
 expert is local: :func:`local_combine` is the per-shard scatter -> expert
 SwiGLU -> gather of the reference's ``_local_combine`` with the identity in
 place of the fences, which is also the reference's no-mesh fallback in
-``repro.models.moe.moe_apply``. The sharded entry points need
+``repro.models.moe.moe_apply``. The sharded entry points
+(``ep_applicable``, ``ep_dispatch_combine``, the manual-mode fences) need
 ``torch.distributed`` and come with the parallel slice (A7 + A14 in
-ROADMAP.md): reaching one raises.
+ROADMAP.md).
 
 Layout: the reference's (B, E, C, d) dispatch buffer is held expert-major
 as ``E * B * C`` rows of d (row ``e*B*C + b*C + slot``), so the expert
@@ -23,52 +24,10 @@ zeros, so gradients repeat bit for bit as well.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import MoEConfig
-
 Tensor = torch.Tensor
-
-
-def _needs_parallel_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (expert parallelism over torch.distributed) comes with the "
-        f"parallel slice (A7 + A14)")
-
-
-def ep_applicable(m: MoEConfig, mesh, batch: int, batch_axis: int) -> bool:
-    """Whether the sharded expert-parallel path applies: never without a
-    mesh. A mesh raises: the port has no sharded path yet."""
-    if mesh is None:
-        return False
-    raise _needs_parallel_slice("ep_applicable(mesh=)")
-
-
-def manual_mode(model_axis: Optional[str], model_size: int = 1, dp=()):
-    raise _needs_parallel_slice("manual_mode")
-
-
-def region_in(x: Tensor, axis) -> Tensor:
-    raise _needs_parallel_slice("region_in")
-
-
-def region_out(y: Tensor, axis) -> Tensor:
-    raise _needs_parallel_slice("region_out")
-
-
-def mean_in_fwd(x: Tensor, axes) -> Tensor:
-    raise _needs_parallel_slice("mean_in_fwd")
-
-
-def ep_dispatch_combine(*args, **kwargs) -> Tensor:
-    raise _needs_parallel_slice("ep_dispatch_combine")
-
-
-def ep_manual_combine(*args, **kwargs) -> Tensor:
-    raise _needs_parallel_slice("ep_manual_combine")
 
 
 def dispatch_rows(topi: Tensor, slot: Tensor, C: int) -> Tensor:

@@ -273,6 +273,40 @@ __device__ __forceinline__ void tile_load_async(__nv_bfloat16* dst,
   }
 }
 
+// The column means of S rows of HD values into out[HD] (shared memory),
+// with all NTHREADS threads of the block: row(s, c0, x) loads columns
+// [c0, c0 + 8) of row s into x as f32. Thread i sums column group
+// i % (HD / 8) over rows i / (HD / 8), + R, ... (R row lanes); the lanes'
+// partials (part: shared, NTHREADS * 8 floats) then add in lane order, so
+// the result depends on S and the values only. Ends with a barrier. The
+// attention kernels write it to a query row that sees no key: the softmax
+// of equal masked logits, as the reference's attention gives it.
+template <int HD, int NTHREADS, typename Row>
+__device__ __forceinline__ void column_mean(const Row& row, int S,
+                                            float* part, float* out) {
+  constexpr int CG = HD / 8;  // column groups of 8
+  static_assert(HD % 8 == 0 && NTHREADS % CG == 0, "groups tile the block");
+  constexpr int R = NTHREADS / CG;
+  const int c0 = threadIdx.x % CG * 8, lane = threadIdx.x / CG;
+  float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int s = lane; s < S; s += R) {
+    float x[8];
+    row(s, c0, x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] += x[e];
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) part[lane * HD + c0 + e] = a[e];
+  __syncthreads();
+  for (int c = threadIdx.x; c < HD; c += NTHREADS) {
+    float m = 0.f;
+    for (int w = 0; w < R; ++w) m += part[w * HD + c];
+    out[c] = m / static_cast<float>(S);
+  }
+  __syncthreads();
+}
+
 // RoPE of head-major q (B, H, T, HD) and k (B, KV, T, HD) by the positions
 // pos (B, T) into qr and kr, for thread i of a 1-D grid of
 // B * (H + KV) * T * HD / (2 N) threads: each rotates N = Vec16<T>::N pairs

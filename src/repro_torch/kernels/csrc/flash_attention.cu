@@ -27,10 +27,13 @@
 // one serving runs.
 //
 // A query row that sees no key at all (a left-pad row t < kv_offsets[b]) is
-// written as 0 with lse = -inf. The Pallas kernel masks with the finite
-// -1e30 and so writes there the mean of V over the blocks it visited, a
-// value that depends on its block size. Those rows never reach a real row:
-// their key/value slots are masked in every later attention and in decode.
+// written as the mean of V over the S keys, with lse = -inf: the softmax of
+// equal masked logits, which the reference's attention gives there (its
+// Pallas kernel too where one of its blocks holds exactly the S keys).
+// Left pads route in an MoE layer and take capacity slots before the real
+// tokens, so this value reaches real rows there. A block holding such a
+// row reads its kv head's V once more for it (port::column_mean); other
+// blocks do not.
 //
 // What bounds it: at the qwen3-1.7b shapes (B = 8, H = 16, KV = 8, T = S =
 // 512, HD = 128, causal) a call moves 50 MB of q, k, v and o in bf16
@@ -209,11 +212,23 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
+  // a row that sees no key (a left pad) takes the mean of V over the S
+  // keys; ks and vs are free once every thread has left the loop
+  float* mean = vs;
+  if (__syncthreads_or(t < T_ && !(l > 0.f)))
+    port::column_mean<HD, THREADS>(
+        [&](int s, int c0, float (&x)[8]) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            x[e] = to_f(v[(kv_base + s) * HD + c0 + e]);
+        },
+        S, ks, mean);
   if (t < T_) {
     const size_t o_base = (q_base + t) * HD;
 #pragma unroll
     for (int i = 0; i < CPT; ++i)
-      o[o_base + qtr + 4 * i] = from_f<T>(l > 0.f ? acc[i] / l : 0.f);
+      o[o_base + qtr + 4 * i] =
+          from_f<T>(l > 0.f ? acc[i] / l : mean[qtr + 4 * i]);
     if (lse != nullptr && qtr == 0)
       lse[q_base + t] = l > 0.f ? m + logf(l) : -INFINITY;
   }
@@ -413,6 +428,7 @@ __global__ void __launch_bounds__(TC_THREADS)
 
   // epilogue: o / l through this warp's own rows of qs, 16-byte stores
   float inv[2];
+  bool keyless[2], any_keyless = false;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_r[r];
@@ -420,16 +436,30 @@ __global__ void __launch_bounds__(TC_THREADS)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = l > 0.f ? 1.f / l : 0.f;
     const int t = q_start + row0 + 8 * r;
+    keyless[r] = !(l > 0.f);
+    any_keyless = any_keyless || (keyless[r] && t < T_);
     if (lse != nullptr && tq == 0 && t < T_)
       lse[q_base + t] = l > 0.f ? m_r[r] * scale + logf(l) : -INFINITY;
   }
+  // a row that sees no key (a left pad) takes the mean of V over the S
+  // keys; the k stages are free once every thread has left the loop
+  float* part = reinterpret_cast<float*>(ks);
+  float* mean = part + TC_THREADS * 8;
+  if (__syncthreads_or(any_keyless))
+    port::column_mean<HD, TC_THREADS>(
+        [&](int s, int c0, float (&x)[8]) {
+          port::load16(v + (kv_base + s) * HD + c0, x);
+        },
+        S, part, mean);
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int c = n * 8 + 2 * tq;
     *reinterpret_cast<uint32_t*>(qs + row0 * LD + c) =
-        port::pack_bf16(oacc[n][0] * inv[0], oacc[n][1] * inv[0]);
+        keyless[0] ? port::pack_bf16(mean[c], mean[c + 1])
+                   : port::pack_bf16(oacc[n][0] * inv[0], oacc[n][1] * inv[0]);
     *reinterpret_cast<uint32_t*>(qs + (row0 + 8) * LD + c) =
-        port::pack_bf16(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
+        keyless[1] ? port::pack_bf16(mean[c], mean[c + 1])
+                   : port::pack_bf16(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
   }
   __syncwarp();
   constexpr int CPR = HD / 8;

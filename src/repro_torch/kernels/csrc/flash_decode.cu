@@ -12,7 +12,7 @@
 // in-kernel by pos - offsets[b] (half-split RoPE, freq_i =
 // exp(-(i / (HD/2)) * log(theta)), as _rope_rotate of the Pallas kernels);
 // the cached keys were rotated when they were written. A row that sees no
-// slot is written as 0.
+// slot is written as the mean of V over the S slots.
 //
 // What bounds it: per step it must read the visible part of the cache,
 // 2 * KV * (pos + 1) * HD elements per row, for 4 FLOPs per element per

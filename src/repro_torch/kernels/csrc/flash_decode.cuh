@@ -35,7 +35,10 @@
 // after one cluster barrier rank 0 merges the slots in rank order and
 // writes the output. A rank that saw no slot has m = -inf, l = 0, acc = 0:
 // its terms are fmaf(0, 0, x) = x, so it leaves the result bit-identical.
-// A row that sees no slot is 0.
+// A row that sees no slot is the mean of V over the S slots (the softmax
+// of equal masked logits, as the reference's oracle gives it), which rank 0
+// reads through the slot source in logical slot order, so the paged kernel
+// still equals the contiguous one bit for bit there.
 //
 // Chunks, the chunk-to-rank map and the merge order depend only on logical
 // slot indices and (HD, dtype), and the slot source only changes where a
@@ -171,6 +174,14 @@ struct ContiguousSlots {
   __device__ __forceinline__ int fetch_table(int, int) const { return 0; }
   __device__ __forceinline__ void stash(int, int*, int, int) const {}
 
+  // Columns [c0, c0 + 8) of slot s's value as f32.
+  template <int HD>
+  __device__ __forceinline__ void value8(int s, int c0, float (&x)[8]) const {
+    const T* p = v + (row + s) * HD + c0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = load_f(p[e]);
+  }
+
   // Copies slots [s0, s0 + N) into the stage as 16-byte copies: slot i's
   // key row at kd + i * LD. A slot that `vis` rejects is zero-filled, not
   // read (its copy names row 0, any mapped address).
@@ -225,6 +236,17 @@ struct PagedSlots {
     return ok ? (static_cast<size_t>(tab[s / ps - p0]) * KV + kvh) * ps +
                     s % ps
               : 0;
+  }
+
+  // Columns [c0, c0 + 8) of logical slot s's value as f32 (dequantized).
+  template <int HD>
+  __device__ __forceinline__ void value8(int s, int c0, float (&x)[8]) const {
+    const size_t r =
+        (static_cast<size_t>(pt_row[s / ps]) * KV + kvh) * ps + s % ps;
+    const T* p = v + r * HD + c0;
+    const float sc = kScaled ? vs[r] : 1.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = load_f(p[e]) * sc;
   }
 
   // As ContiguousSlots::issue, each slot's rows from its page. An int8
@@ -505,8 +527,24 @@ __device__ __forceinline__ void decode_cluster(
   }
   cluster_sync();  // rank 0's inbox is complete
 
-  // rank 0 merges the ranks' partials in rank order
+  // rank 0 merges the ranks' partials in rank order. When no rank saw a
+  // slot (the G rows share their slots), the rows take the mean of V over
+  // the S slots instead, read once more through the slot source.
   if (rank == 0) {
+    bool none = true;
+#pragma unroll
+    for (int w = 0; w < CL; ++w)
+      none = none && inbox[w * L::BOX] == -INFINITY;
+    if (none) {
+      column_mean<HD, THREADS>(
+          [&](int s, int c0, float (&x)[8]) {
+            slots.template value8<HD>(s, c0, x);
+          },
+          S, reinterpret_cast<float*>(kb), qs);
+      for (int i = tid; i < GHD; i += THREADS)
+        o[q_base + i] = from_f<Q>(qs[i % HD]);
+      return;
+    }
     for (int i = tid; i < GHD; i += THREADS) {
       const int rr = i / HD;
       float mx = -INFINITY;

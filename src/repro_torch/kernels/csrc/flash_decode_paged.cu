@@ -11,9 +11,11 @@
 // row on the device, or one scalar) and offsets as in flash_decode.cu; a
 // logical slot s is visible iff s <= pos, s > pos - window (window > 0)
 // and s >= offsets[b]. With rope, q is rotated in-kernel by pos -
-// offsets[b]. The output is in q's dtype; a row that sees no slot is 0.
-// Every pt entry a visible slot reaches must lie in [0, pages): the
-// caller's contract (the wrapper cannot check it without a host sync).
+// offsets[b]. The output is in q's dtype; a row that sees no slot is the
+// mean of V over the NB * ps logical slots.
+// Every pt entry a visible slot reaches (every entry of a row that sees no
+// slot) must lie in [0, pages): the caller's contract (the wrapper cannot
+// check it without a host sync).
 //
 // What bounds it: per step it must read the visible slots of every row,
 // 2 * KV * visible * HD elements (plus 2 * KV * visible f32 scales for

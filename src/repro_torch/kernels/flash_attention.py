@@ -28,10 +28,11 @@ f32 on the FMA bodies: the dtype chooses, and the kernels' C entry points
 dispatch on it.
 
 A query row that sees no key (a left-pad row, ``t < kv_offsets[b]``) is
-written as 0 with ``lse = -inf``; the Pallas kernel leaves there a mean of
-V that depends on its block size. Such rows never reach a real row (their
-slots are masked in every later attention), so the port is compared with
-the JAX package on real rows only.
+written as the mean of V over the S keys with ``lse = -inf``: the softmax
+of equal masked logits, as the reference's attention gives it (and its
+Pallas kernel where one of its blocks holds exactly the S keys; elsewhere
+the Pallas value depends on its block size). Left pads route in an MoE layer and take
+capacity slots, so the value reaches real tokens there.
 
 On a CPU tensor each computes its plain version
 (:func:`repro_torch.kernels.ref.attention_ref`,

@@ -15,6 +15,9 @@ them in turn (rank r the chunks r, r + 8, ...) and rank 0 merges the
 blocks' partial softmaxes in rank order. The chunks depend only
 on ``hd`` and the cache's element size, so a row's output does not depend
 on the batch, on the cache's length past ``pos`` or on the cache's layout.
+A row that sees no slot is the mean of V over every slot (the S slots, or
+the ``NB * ps`` logical slots of a paged row), as the reference's oracle
+gives it; only such a row depends on the cache's length.
 
 ``pos`` is an int (every row at one depth), a 0-d tensor or a per-row
 (B,) tensor; a tensor is read by the kernel on the device, never on the
@@ -158,9 +161,10 @@ def flash_decode_paged(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
     (B, H, hd) in q.dtype. ``k_scale``/``v_scale`` (pages, KV, ps) f32 come
     together and only with an int8 pool; a bf16/f32 pool has q's dtype.
 
-    Every ``pt`` entry that a visible slot reaches must lie in
-    [0, pages): the caller's contract, which the wrapper cannot check
-    without a host sync (the serving engine keeps it)."""
+    Every ``pt`` entry that a visible slot reaches (every entry of a row
+    that sees no slot) must lie in [0, pages): the caller's contract,
+    which the wrapper cannot check without a host sync (the serving
+    engine keeps it)."""
     if not q.is_cuda:
         return ref.flash_decode_paged_ref(
             q, kp, vp, pt, pos, window=window, offsets=offsets,

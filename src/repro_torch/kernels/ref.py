@@ -14,9 +14,11 @@ wrapper, and what ``chip_smoke.py`` holds each CUDA kernel to on the card.
   ``attention_backward_ref`` is the flash backward's recomputation from
   (o, lse); ``attention_vjp_ref`` and ``attention_rope_vjp_ref`` are the
   hand-derived softmax VJPs of ``repro.kernels.ref``. A query row that
-  sees no key (a left-pad row of a ragged prompt) is defined as 0 here and
-  in the kernels, where the JAX oracle returns the mean of V; such rows are
-  masked out of every later attention.
+  sees no key (a left-pad row of a ragged prompt) takes the softmax of
+  equal masked logits over every key: the mean of V over the S keys (the
+  S slots of a decode cache), as the reference's attention gives it. Pad
+  rows route in an MoE layer and take capacity slots, so their value
+  reaches real tokens there.
 - ``quantize_slots`` is the int8 KV pool's per-slot quantizer.
 - ``mamba_chunk_ref`` is the sequential selective-scan recurrence of
   ``repro.kernels.ref.mamba_chunk_ref`` in f32; its backward
@@ -196,7 +198,7 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                   ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
     """q: (B, H, T, hd); k, v: (B, KV, S, hd) -> (B, H, T, hd) in q.dtype,
     and with ``return_lse`` the f32 row logsumexp (B, H, T) (-inf for a
-    row that sees no key).
+    row that sees no key, whose output is the mean of V over the S keys).
 
     Head h reads kv head ``h // (H // KV)``. Key s is visible to query t
     iff ``s <= t`` (causal), ``s > t - window`` (window) and
@@ -218,7 +220,6 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         mask = mask & (ki[None] >= kv_offsets.reshape(B, 1, 1))
     mask = mask[:, None, None]                              # (B,1,1,T,S)
     p = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
-    p = p * mask.any(dim=-1, keepdim=True)                  # no key -> 0
     out = torch.einsum("bkgts,bksd->bkgtd", p, v.float())
     out = out.reshape(B, H, T, hd).to(q.dtype)
     if not return_lse:
@@ -378,7 +379,8 @@ def flash_decode_ref(q: Tensor, k: Tensor, v: Tensor,
 
     ``pos`` is an int, a 0-d tensor or a per-row ``(B,)`` tensor of query
     positions. ``rope_theta`` rotates q by ``pos - offsets`` first (the
-    cached keys were rotated when written)."""
+    cached keys were rotated when written). A row that sees no slot is the
+    mean of V over the S slots."""
     B, H, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
     g = H // KV
@@ -396,7 +398,6 @@ def flash_decode_ref(q: Tensor, k: Tensor, v: Tensor,
                             offset=off)                       # (B, S)
     valid = valid[:, None, None, :]
     p = torch.softmax(logits.masked_fill(~valid, NEG_INF), dim=-1)
-    p = p * valid.any(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bksd->bkgd", p, v.float())
     return out.reshape(B, H, hd).to(q.dtype)
 
@@ -438,7 +439,9 @@ def flash_decode_paged_ref(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
     dequantized in f32 at the gather. ``rope_theta`` rotates q by
     ``pos - offsets`` first. Every ``pt`` entry must lie in [0, pages): the
     caller's contract, which the CUDA kernel cannot check without a host
-    sync. A row that sees no slot is 0."""
+    sync. A row that sees no slot is the mean of V over all NB * ps logical
+    slots, as the reference's oracle (the gathered cache through
+    ``flash_decode_ref``) gives it."""
     B, H, hd = q.shape
     KV, ps = kp.shape[1], kp.shape[2]
     NB = pt.shape[1]
@@ -454,7 +457,6 @@ def flash_decode_paged_ref(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
     m = torch.full((B, KV, g), NEG_INF, device=q.device)
     l = torch.zeros((B, KV, g), device=q.device)
     acc = torch.zeros((B, KV, g, hd), device=q.device)
-    seen = torch.zeros((B,), dtype=torch.bool, device=q.device)
     slots = torch.arange(ps, device=q.device)
     for i in range(NB):
         ids = pt[:, i].long()
@@ -465,7 +467,6 @@ def flash_decode_paged_ref(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
         s = torch.einsum("bkgd,bksd->bkgs", qg, kb)
         mask = slot_visibility(i * ps + slots[None, :], posb, seq_k=NB * ps,
                                window=window, ring=False, offset=off)
-        seen = seen | mask.any(dim=-1)
         s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -474,7 +475,6 @@ def flash_decode_paged_ref(q: Tensor, kp: Tensor, vp: Tensor, pt: Tensor,
         acc = alpha[..., None] * acc + torch.einsum("bkgs,bksd->bkgd", p, vb)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    out = out * seen[:, None, None, None]                    # no slot -> 0
     return out.reshape(B, H, hd).to(q.dtype)
 
 

@@ -246,7 +246,9 @@ def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
                 ) -> Tuple[Tensor, Optional[Params], Dict[str, Tensor]]:
     """Run head + body + tail: with no cache, the training forward over
     ``positions``; otherwise against ``cache`` (updated in place). Returns
-    (x, cache, aux), the blocks' auxiliary losses summed in layer order.
+    (x, cache, aux): with no cache the blocks' auxiliary losses summed in
+    layer order (zero without MoE blocks), against a cache an empty dict
+    (prefill and decode drop the losses).
 
     ``remat=True`` (no cache) recomputes each block in the backward
     (``torch.utils.checkpoint``, non-reentrant), the counterpart of the
@@ -270,4 +272,4 @@ def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
         x, _, _ = block_apply(p, cfg, spec, x, cache=c, positions=positions,
                               pos=pos, decode=decode,
                               use_kernels=use_kernels, offsets=offsets)
-    return x, cache, _with_zeros({}, x.device)
+    return x, cache, {}

@@ -157,14 +157,18 @@ def test_paged_plain_trash_pages(int8):
 
 
 def test_paged_plain_row_that_sees_no_slot_is_zero():
-    """offsets past pos: no visible slot, the row is 0 (the kernels' and
-    ``flash_decode_ref``'s convention; the reference leaves a mean of V)."""
+    """offsets past pos: no visible slot, the row is the mean of V over its
+    NB * ps logical slots (the softmax of equal masked logits), as the
+    reference's oracle gives it."""
     q, k, v = _qkv(2, 4, 2, 32, 32, 2)
     kp, vp, pt = _paged_from_contiguous(k, v, 16)
-    out = tref.flash_decode_paged_ref(
-        *_t(q, kp, vp, pt, np.array([10, 20], np.int32)),
-        offsets=torch.tensor([11, 0], dtype=torch.int32))
-    assert not out[0].any() and out[1].abs().sum() > 0
+    pos, off = np.array([10, 20], np.int32), np.array([11, 0], np.int32)
+    out = tref.flash_decode_paged_ref(*_t(q, kp, vp, pt, pos),
+                                      offsets=torch.tensor(off))
+    _close(out, jref.flash_decode_paged_ref(*_j(q, kp, vp, pt, pos),
+                                            offsets=jnp.asarray(off)))
+    _close(out[0], np.repeat(v[0].mean(axis=1), 2, axis=0))
+    assert out[1].abs().sum() > 0
 
 
 @pytest.mark.parametrize("window,theta", [(None, None), (24, None),

@@ -14,8 +14,10 @@ offsets, per-row positions, chunks that are skipped or wholly masked), its
 paged form to ``flash_decode_paged_pallas`` and ``flash_decode_paged_ref``
 (int8 pools too). The merge algebra is checked bit for bit: empty partials
 change nothing, slots past pos change nothing, a row equals its solo run.
-A row that sees no slot is 0 (the Pallas kernel leaves a mean of V there,
-so such rows are held to the port's plain version only)."""
+A row that sees no slot (no rank saw one) takes instead the mean of V over
+every slot, summed in logical slot order (the Pallas kernel leaves a
+block-dependent mean of V there, so such rows are held to the plain
+versions only)."""
 import math
 
 import jax.numpy as jnp
@@ -113,7 +115,10 @@ def chunked_decode(q, k, v, pos, *, n, cl, window=None, ring=False,
         for h in range(KV):
             parts = _partials(qf[b, h * G:(h + 1) * G], k[b, h].float(),
                               v[b, h].float(), vis, lo, hi, n, cl, log)
-            out[b, h * G:(h + 1) * G] = _merge(parts)
+            if all(bool((m == NEG).all()) for m, _, _ in parts):
+                out[b, h * G:(h + 1) * G] = v[b, h].float().sum(0) / S
+            else:
+                out[b, h * G:(h + 1) * G] = _merge(parts)
     return out
 
 
@@ -121,7 +126,8 @@ def chunked_decode_paged(q, kp, vp, pt, pos, *, n, cl, window=None,
                          offsets=None, k_scale=None, v_scale=None,
                          rope_theta=None):
     """The same order on a page pool: only the visible slots' rows are
-    gathered (dequantized in f32 for an int8 pool); the rest are zero."""
+    gathered (dequantized in f32 for an int8 pool); the rest are zero, but
+    for a row that sees no slot, which reads every logical slot."""
     B = q.shape[0]
     KV, ps, hd = kp.shape[1], kp.shape[2], kp.shape[3]
     S = pt.shape[1] * ps
@@ -132,7 +138,7 @@ def chunked_decode_paged(q, kp, vp, pt, pos, *, n, cl, window=None,
     v = torch.zeros(B, KV, S, hd)
     for b in range(B):
         lo, hi = _range(int(posb[b]), int(off[b]), window, False, S)
-        for s in range(lo, hi):
+        for s in range(lo, hi) if hi > lo else range(S):
             page, at = int(pt[b, s // ps]), s % ps
             k[b, :, s] = kp[page, :, at].float()
             v[b, :, s] = vp[page, :, at].float()
@@ -195,13 +201,23 @@ def test_chunk_model_matches_reference(B, H, KV, S, hd, window, ring, offs,
 
 
 def test_chunk_model_row_that_sees_no_slot_is_zero():
+    """No rank sees a slot of row 0: it is the mean of V over the S slots,
+    as the plain version's softmax of equal masked logits, its paged form
+    too (every logical slot read through the block table)."""
     q, k, v = map(torch.tensor, _inputs(2, 4, 2, 40, 32, 3))
     pos, off = torch.tensor([10, 20]), torch.tensor([11, 0])
     got = chunked_decode(q, k, v, pos, n=8, cl=8, offsets=off)
-    assert not got[0].any() and got[1].abs().sum() > 0
+    torch.testing.assert_close(got[0], v[0].mean(1).repeat_interleave(2, 0),
+                               rtol=TOL, atol=TOL)
+    assert got[1].abs().sum() > 0
     torch.testing.assert_close(got, tref.flash_decode_ref(q, k, v, pos,
                                                           offsets=off),
                                rtol=TOL, atol=TOL)
+    kp, vp, pt = map(torch.tensor, _pool(k.numpy(), v.numpy(), 8))
+    paged = chunked_decode_paged(q, kp, vp, pt, pos, n=8, cl=8, offsets=off)
+    assert torch.equal(paged, got)
+    torch.testing.assert_close(paged, tref.flash_decode_paged_ref(
+        q, kp, vp, pt, pos, offsets=off), rtol=TOL, atol=TOL)
 
 
 def test_chunk_model_skips_outside_chunks_and_masks_ring_chunks():

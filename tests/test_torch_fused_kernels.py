@@ -2,9 +2,12 @@
 port wrapper (which takes its plain version for a CPU tensor) and each
 plain version against the Pallas kernel in interpret mode and its
 ``repro.kernels.ref`` oracle, at the reference tests' grids plus ragged
-shapes, f32. Flash attention is compared on real query rows only: a
-left-pad row (t < kv_offsets[b]) sees no key, which the port defines as 0
-and the Pallas kernel leaves as a block-dependent mean of V."""
+shapes, f32. A left-pad row of flash attention (t < kv_offsets[b]) sees
+no key: the port gives it the mean of V over the S keys, as the
+reference's attention (``repro.models.layers._sdpa``) does, and as the
+Pallas kernel does where one of its blocks holds exactly the S keys; with
+several blocks the Pallas value depends on its block size, so there pad
+rows are held to ``_sdpa`` alone."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,13 +166,23 @@ def test_flash_attention_matches_reference(shape, causal, window, offs):
     if off is None:
         _close(o, jref.attention_ref(q, k, v, causal=causal, window=window),
                2e-5)
-    else:                              # the port's own no-key rows are 0
-        assert (o[~rows] == 0).all() and np.isneginf(lse[~rows]).all()
+    else:            # every row, pads included, against the model's softmax
+        mask = (np.ones((T, S), bool) if not causal
+                else np.arange(S)[None] <= np.arange(T)[:, None])
+        if window is not None:
+            mask &= np.arange(S)[None] > np.arange(T)[:, None] - window
+        mask = mask[None] & (np.arange(S)[None, None] >= off[:, None, None])
+        want = jlayers._sdpa(*(jnp.asarray(a).swapaxes(1, 2) for a in (q, k, v)),
+                        jnp.asarray(mask)).swapaxes(1, 2)
+        _close(o, want, 2e-5)
+        assert np.isneginf(lse[~rows]).all()
 
 
 def test_flash_attention_adapter_matches_reference():
     """The model-layout adapter (B, T, H, hd) with kv_offsets against the
-    JAX package's ``ops.flash_attention`` (forward-only offsets path)."""
+    JAX package's ``ops.flash_attention`` (forward-only offsets path): at
+    T = 24 the Pallas kernel holds the keys in one block, so its pad rows
+    are the mean of V over the 24 keys, as the port's."""
     q, k, v = _attn_inputs((2, 4, 2, 24, 24, 64), 5)
     qm, km, vm = (a.swapaxes(1, 2) for a in (q, k, v))
     off = np.array([3, 0], np.int32)
@@ -177,8 +190,7 @@ def test_flash_attention_adapter_matches_reference():
                                kv_offsets=torch.tensor(off)).numpy()
     want = np.asarray(jops.flash_attention(qm, km, vm,
                                            kv_offsets=jnp.asarray(off)))
-    real = np.arange(24)[None, :] >= off[:, None]          # (B, T)
-    _close(got[real], want[real], 2e-5)
+    _close(got, want, 2e-5)
 
 
 # ---------------------------------------------------------------------------

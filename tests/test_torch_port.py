@@ -653,7 +653,8 @@ def test_cuda_flash_decode_paged_bit_equals_contiguous(B, H, KV, NB, ps, hd,
 @pytest.mark.gpu
 def test_cuda_flash_decode_paged_trash_pages():
     """Table entries past pos on the trash page change nothing; an
-    all-trash row and a row that sees no slot are finite (the latter 0)."""
+    all-trash row is finite, and a row that sees no slot is the mean of V
+    over its logical slots, as the plain version."""
     gen = _on_card()
     q, k, v, _, _ = _paged_inputs(2, 4, 2, 4, 16, 64, None, torch.float32,
                                   gen)
@@ -667,10 +668,13 @@ def test_cuda_flash_decode_paged_trash_pages():
     torch.testing.assert_close(
         dead, tref.flash_decode_paged_ref(q, kp, vp, torch.zeros_like(pt),
                                           pos), rtol=1e-4, atol=1e-4)
-    none = FD.flash_decode_paged(q, kp, vp, pt, pos,
-                                 offsets=torch.tensor([25, 40], device="cuda",
-                                                      dtype=torch.int32))
-    assert torch.isfinite(dead).all() and not none[0].any()
+    off = torch.tensor([25, 0], device="cuda", dtype=torch.int32)
+    none = FD.flash_decode_paged(q, kp, vp, pt, pos, offsets=off)
+    assert torch.isfinite(dead).all()
+    torch.testing.assert_close(
+        none, tref.flash_decode_paged_ref(q, kp, vp, pt, pos, offsets=off),
+        rtol=1e-4, atol=1e-4)
+    assert torch.equal(none, FD.flash_decode(q, k, v, pos, offsets=off))
 
 
 @pytest.mark.gpu
