@@ -78,11 +78,12 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    plain version and one library call (``kp[pt]`` gather + SDPA) at four
    states sampled across phase 10's run, on pools that do not fit in L2,
    timed in turn for three rounds;
-10. ContinuousEngine on full-width qwen3-1.7b in bf16 (random weights from
-   SERVE_SEED): 16 slots, max_len 1024, a paged pool of 1025 pages of 16,
+10. ContinuousEngine on qwen3-1.7b in bf16 at full width, the depth cut
+   to ENGINE_LAYERS = 8 of 28 layers (the first 8 layers of phase 7's
+   weights): 16 slots, max_len 1024, a paged pool of 1025 pages of 16,
    greedy, the 32-request Poisson trace ENGINE_TRACE. Every request must
-   complete; the launch counters must show 28 flash_decode_paged launches
-   a step, no flash_decode launch in a decode step and 28 flash_attention
+   complete; the launch counters must show 8 flash_decode_paged launches
+   a step, no flash_decode launch in a decode step and 8 flash_attention
    launches an admission; four requests (the first admitted, one admitted
    into a recycled slot, one with a 512-token prompt, the last admitted)
    must equal their solo ``generate`` runs. The same trace on an int8 pool
@@ -117,7 +118,7 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    57 rmsnorm_residual_backward, 28 of each of swiglu, swiglu_backward,
    flash_attention_rope and flash_attention_backward, and no
    flash_attention or decode launch, and no plain-torch RoPE rotation
-   (``ref.rope_rotate_hm``) in the timed steps; the loss must be finite
+   (``ref.rope_rotate_hm``) in any step; the loss must be finite
    and fall; a remat=True step from the same state must give the same
    loss and parameters within BF16_TOL. Step ms, tokens/s, peak memory, and one
    profiled step by kernel family, whose kernel counts must match the
@@ -207,11 +208,67 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    a token routed differently fails unless two of its k + 1 largest
    probabilities are within NEAR_TIE, and such tokens are counted),
    prefill logits within TOL, greedy tokens of ragged prompts equal, one
-   train step's loss within LOSS_TOL and parameters within TOL.
+   train step's loss within LOSS_TOL and parameters within TOL;
+25. full-width seamless-m4t-large-v2 in bf16 (24 decoder layers, each with
+   a cross block, and a 24-layer non-causal encoder; random weights from
+   SERVE_SEED): ``encode`` of ENCDEC_FRAMES = 512 stub frames (0.1 *
+   normal), then ``generate(memory=)`` of B=8 prompts left-padded to 128
+   (ENCDEC_LENS), 32 greedy tokens: exactly 49 rmsnorm_residual and 24
+   swiglu launches in the encoder, and 24 flash_attention, 744
+   flash_decode, 2336 rmsnorm_residual (73 a pass: norm_x, the
+   pre-attention and the fused residual norm of each layer, the final
+   norm) and 768 swiglu in the generate, nothing else (the encoder's
+   attention and the cross-attentions are plain, as in the reference); a
+   second run's memory and tokens bit-equal; rows 0 and 7 equal to their
+   runs alone (their own frames encoded alone; the prompt left-padded by
+   its pad modulo KEY_TILE = 64, as B9 and B12 tile keys from slot 0: row
+   7's pad of 112 by 48, and also unpadded, printed); encoder ms,
+   prefill ms (cross cache and fused prefill), decode ms a step, peak
+   memory, and profiled runs by family (``encode`` and ``cross_attention``
+   name the cuBLAS and other kernels launched inside them);
+26. seamless training at full width and depth (B=8 x T=512 of token_lm
+   and 128 stub frames, lr and clip as phase 13; one warm and five timed
+   steps): exactly 122/122 norm, 48/48 SwiGLU and 24/24 RoPE flash
+   attention launches a step (encoder and decoder), the loss falling, a
+   remat step equal to the plain one, step ms, tokens/s, peak memory, a
+   profiled step whose kernel counts match the counters;
+27. full-width llama-3.2-vision-11b in bf16 (40 layers, 8 with a cross
+   block into 1600 stub image embeddings): ``generate(memory=)`` with the
+   prompts of phase 7, as phase 25: exactly 40 flash_attention, 1240
+   flash_decode, 2848 rmsnorm_residual (89 a pass) and 1280 swiglu
+   launches; bit-equal repeats; rows 0 and 7 equal to their runs alone;
+28. llama-vision training at full width, the depth cut from 40 to
+   VLM_TRAIN_LAYERS = 10 (2 of 8 periods, 2 cross blocks; at 40 layers f32
+   momentum alone is ~40 GB beside 20 GB of weights and 20 GB of
+   gradients), as phase 26: 23/23 norm, 10/10 SwiGLU and 10/10 RoPE flash
+   attention launches a step;
+29. jamba-v0.1-52b in bf16 at full width, the depth cut from 32 to
+   JAMBA_LAYERS = 16 (2 of 4 periods: ~26 B parameters, ~52 GB; 14 Mamba
+   and 2 attention layers, 8 MoE and 8 dense feed-forwards; 32 layers
+   would be ~102 GB): ``generate`` with the prompts of phase 7: exactly 2
+   flash_attention, 62 flash_decode, 28 mamba_chunk, 1056
+   rmsnorm_residual and 256 swiglu launches, nothing else; a second run
+   bit-equal; the dropped shares; prefill ms, decode ms a step, peak
+   memory, profiled runs by family (the MoE layer's ops as phase 21's).
+   Then ContinuousEngine on the first MOE_ENGINE_REQUESTS requests of
+   ENGINE_TRACE (phase 10's slots, max_len and pages): the attention
+   layers' pages and the Mamba layers' states in one engine; every request
+   completes with exact launches (2 flash_decode_paged a step, 2
+   flash_attention and a mamba_chunk a 256 prompt tokens a Mamba layer an
+   admission); useful tokens/s and a profiled run. Its batched rows are
+   held to the CPU (phase 30) and to exact launches, not to solo runs: MoE
+   decode capacity pools over the batch;
+30. the six new configurations reduced (seamless, llama-vision, jamba,
+   phi3-medium-14b, gemma3-27b, h2o-danube-3-4b) in f32, card (kernels)
+   against CPU (the plain model path) from the same parameters and
+   memory input: jamba's prefill routing equal layer by layer first,
+   prefill logits within TOL, greedy tokens of ragged prompts equal (past
+   gemma3's window), one train step's loss within LOSS_TOL and parameters
+   within TOL.
 
 A line before the second-to-last gives the MoE path's kernels: each one's
 device ms and launches in the profiled generate, engine run and train
-step of phases 21–23.
+step of phases 21–23; the line before it slice 8's (phases 25–29).
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, with a
 bound that sums the prefill calls' and the decode calls' own bounds; the paged
@@ -842,8 +899,10 @@ def profile_device_ms(fn, reps: int = 10, warm: bool = True,
     after one warm call, the profiler's warmup step, unless ``warm`` is
     off; ``host=False`` records the
     device's activity only), and the kernels by name: (ms, calls, name) per
-    call. With ``by_op`` (``op_labels``'s, host activity on) a kernel
-    launched inside one of its ops and scopes is named "label: kernel";
+    call. With ``by_op`` (``op_labels``'s, host activity on; or a function
+    of the events giving {correlation id: label}, as ``scope_labels``) a
+    kernel launched inside one of its ops and scopes is named "label:
+    kernel";
     ``host_ops`` (a dict) receives each host event's ms a call
     and count by name (nested ops each count their whole span). A
     window that comes back with no device event at all (as one has now and
@@ -873,7 +932,8 @@ def profile_device_ms(fn, reps: int = 10, warm: bool = True,
         # ~10^6 events, too many to parse into the profiler's event tree)
         by_name = {}
         events = ready[0].events()
-        label = op_labels(events, by_op) if by_op else {}
+        label = ({} if not by_op else by_op(events) if callable(by_op)
+                 else op_labels(events, by_op))
         for ev in events:
             if ev.device_type().name == "CUDA" and \
                     not getattr(ev, "is_user_annotation", lambda: False)():
@@ -1172,13 +1232,16 @@ def phase_serving_kernels():
     return out
 
 
-def ragged_prompts(vocab: int, seed: int):
-    """(B, P) left-padded prompts of PROMPT_LENS real tokens, from ``seed``."""
+def ragged_prompts(vocab: int, seed: int, P=None, lens=None):
+    """(B, P) left-padded prompts of ``lens`` real tokens (SERVE_P and
+    PROMPT_LENS unless given), from ``seed``."""
     import torch
+    P = SERVE_P if P is None else P
+    lens = PROMPT_LENS if lens is None else lens
     g = torch.Generator().manual_seed(seed)
-    full = torch.randint(0, vocab, (SERVE_B, SERVE_P), generator=g)
-    lens = torch.tensor(PROMPT_LENS)
-    real = torch.arange(SERVE_P)[None] >= SERVE_P - lens[:, None]
+    full = torch.randint(0, vocab, (len(lens), P), generator=g)
+    lens = torch.tensor(lens)
+    real = torch.arange(P)[None] >= P - lens[:, None]
     return torch.where(real, full, 0).cuda()
 
 
@@ -1201,6 +1264,10 @@ def reset_serving_launches():
 
 
 def family(name: str) -> str:
+    scope, sep, kernel = name.partition(": ")
+    if sep and scope in MEMORY_SCOPES:  # launched in the encoder or a
+        inner = family(kernel)          # cross-attention: its B-kernels
+        return scope if inner in ("cublas_gemm", "other") else inner
     if name.startswith("moe_"):         # named by its op (MOE_OPS)
         return name.split(":")[0]
     n = name.lower()
@@ -1264,24 +1331,45 @@ def family_profile(label, fn, by_op=None):
             "calls": calls}
 
 
-def serve_params():
-    """Full-width qwen3-1.7b in bf16, random weights from SERVE_SEED (phases
-    7 and 10 share them)."""
+def model_params(cfg):
+    """Random weights from SERVE_SEED at the config's widths, drawn on the
+    card in its dtype."""
     import torch
     from repro_torch import tree
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as TT
-    cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
     params = TT.init_params(SERVE_SEED, cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree.leaves(params))
-    log(f"serve {SERVE_ARCH}: {cfg.n_layers} layers d_model {cfg.d_model} "
-        f"heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.head_dim} d_ff "
-        f"{cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
-        f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn in "
-        f"{time.perf_counter() - t0:.1f} s")
+    kinds = sorted({f"{s.mixer}+{s.ff}" + ("+cross" if s.cross_attn else "")
+                    for s in cfg.layers})
+    extra = ""
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        extra = (f", encoder {e.n_layers} layers d_model {e.d_model} heads "
+                 f"{e.n_heads}/{e.n_kv_heads} d_ff {e.d_ff}")
+    if cfg.ssm is not None:
+        extra += (f", d_inner {cfg.ssm.d_inner(cfg.d_model)} d_state "
+                  f"{cfg.ssm.d_state} dt_rank "
+                  f"{cfg.ssm.resolved_dt_rank(cfg.d_model)}")
+    if cfg.moe is not None:
+        m = cfg.moe
+        extra += (f", {m.n_experts} experts top-{m.top_k} d_expert "
+                  f"{m.d_expert}, shared d {m.d_shared}, capacity factor "
+                  f"{m.capacity_factor}")
+    log(f"{cfg.name}: {cfg.n_layers} layers ({', '.join(kinds)}) d_model "
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd "
+        f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}){extra}, {n_params / 1e9:.3f} B parameters in "
+        f"{cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
     return params
+
+
+def serve_params():
+    """Full-width qwen3-1.7b in bf16, random weights from SERVE_SEED (phases
+    7 and 10 share them)."""
+    from repro_torch.configs import get_config
+    return model_params(get_config(SERVE_ARCH))
 
 
 def phase_serve(params):
@@ -1415,6 +1503,7 @@ def phase_serve_cuda_vs_cpu():
 # ---------------------------------------------------------------------------
 
 ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_PAGE = 16, 1024, 16
+ENGINE_LAYERS = 8    # phase 10's depth: full width, cut from 28 layers
 ENGINE_TRACE = dict(n_requests=32, rate=0.25,
                     prompt_len_choices=(128, 256, 512),
                     new_token_choices=(32, 64, 128), seed=0)
@@ -1838,24 +1927,34 @@ def batch_invariance_probe(params):
         log(f"  {name:<38} {bad} of {total}")
 
 
+def engine_model(params):
+    """qwen3-1.7b at full width with the depth cut to ENGINE_LAYERS: the
+    config and the first layers of phase 7's parameters (no copy)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              body_repeats=ENGINE_LAYERS)
+    stack = dict(params["stack"], body=[
+        slot[:ENGINE_LAYERS] for slot in params["stack"]["body"]])
+    return cfg, dict(params, stack=stack)
+
+
 def phase_engine(params):
-    """Phase 10: ContinuousEngine at full width (see the module doc).
-    Returns its measurements."""
+    """Phase 10: ContinuousEngine at full width, ENGINE_LAYERS of qwen3's
+    28 layers (see the module doc). Returns its measurements."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.serving import (ContinuousEngine, generate,
                                      poisson_trace, run_static_trace)
-    cfg = get_config(SERVE_ARCH)
+    cfg, params = engine_model(params)
     L = cfg.n_layers
     trace = poisson_trace(cfg, **ENGINE_TRACE)
     kw = dict(num_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
               layout="paged", page_size=ENGINE_PAGE)
-    log(f"engine {SERVE_ARCH} bf16: {kw}, default pool; trace "
-        f"{ENGINE_TRACE}: {sum(r.max_new_tokens for r in trace)} tokens "
-        f"asked for")
+    log(f"engine {SERVE_ARCH} bf16, {L} of 28 layers: {kw}, default pool; "
+        f"trace {ENGINE_TRACE}: {sum(r.max_new_tokens for r in trace)} "
+        f"tokens asked for")
 
     def instrument(eng, rec):
         step, admit = eng.step, eng._admit
@@ -2603,93 +2702,89 @@ def phase_train_kernels():
     return out
 
 
-def phase_lm_train():
-    """Phase 13: full-width qwen3-1.7b training in bf16 (random weights from
-    SERVE_SEED, f32 momentum): make_lm_train_step(use_kernels=True) on B=8
-    rows of T=512 from token_lm, one warm step and TRAIN_STEPS timed steps
-    on the repeated batch. The launch counters of a step must read exactly
-    57 rmsnorm_residual (forward and backward), 28 of each of swiglu,
-    swiglu_backward, flash_attention_rope and flash_attention_backward, and
-    no flash_attention or decode launch; the loss must be finite and fall;
-    a remat=True step from the same state must give the same loss and
-    parameters within BF16_TOL. Step ms, tokens/s, peak memory and one
-    profiled step by kernel family."""
+def train_steps(label, cfg, params, batch, want, profiled=None,
+                by_op=None, spans=contextlib.nullcontext, aux_key=None):
+    """One warm and TRAIN_STEPS timed steps of make_lm_train_step
+    (use_kernels, momentum SGD at TRAIN_LR, clip 1.0, f32 momentum) on the
+    repeated ``batch`` (B=8 x T=512), as phases 13, 17, 23, 26 and 28 take
+    them: the second step's launch counters must equal ``want``, the loss
+    must be finite and fall; a profiled step (``by_op``, inside
+    ``spans()``) must hold ``profiled``'s kernels ({counter: (family,
+    kernels a launch)}, TRAIN_KERNELS' by default) as the counters say
+    (late in a run the profiler has lost a window's first events, so a
+    window that lost some is profiled again, three at most); a remat step
+    from the last step's input must give the same loss and parameters
+    within BF16_TOL. ``aux_key`` names a step metric collected beside the
+    loss. Returns the measurements."""
     import torch
     from repro_torch import tree
-    from repro_torch.configs import get_config
     from repro_torch.core import LargeBatchConfig, Regime
-    from repro_torch.data import lm_sequences, token_lm
-    from repro_torch.kernels import ref
     from repro_torch.optim import sgd
     from repro_torch.train.trainer import make_lm_train_step
-    cfg = get_config(SERVE_ARCH)
-    L = cfg.n_layers
-    params = serve_params()
-    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
-                                 n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
-    batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
     lb = LargeBatchConfig(batch_size=TRAIN_B, base_batch_size=TRAIN_B,
                           grad_clip=1.0)
     regime = Regime(base_lr=TRAIN_LR, total_steps=100, drop_every=100)
     step_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True)
     state = (params, sgd.init(params))
     del params
-    want = {"rmsnorm_residual": 2 * L + 1,
-            "rmsnorm_residual_backward": 2 * L + 1, "swiglu": L,
-            "swiglu_backward": L, "flash_attention_rope": L,
-            "flash_attention_backward": L, "flash_attention": 0,
-            "flash_decode": 0, "flash_decode_paged": 0}
-    losses, times, launches = [], [], None
-    # plain-torch RoPE rotations during the timed steps: the RoPE backward
-    # is one kernel launch, so none may run
-    rotations = []
-    plain_rotate = ref.rope_rotate_hm
-
-    def counted_rotate(*args, **kwargs):
-        rotations.append(1)
-        return plain_rotate(*args, **kwargs)
-
-    try:
-        for i in range(1 + TRAIN_STEPS):
-            if i == 1:      # only this step's input state is held here
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-                reset_serving_launches()
-                ref.rope_rotate_hm = counted_rotate
-            if i == TRAIN_STEPS:
-                prev = state    # the last step's input, for the remat step
-            t0 = time.perf_counter()
-            p2, o2, m = step_fn(*state, batch, i)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            if i == 1:
-                launches = serving_launches()
-            losses.append(m["loss"])
-            state = (p2, o2)
-    finally:
-        ref.rope_rotate_hm = plain_rotate
+    losses, auxes, times, launches = [], [], [], None
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:      # only this step's input state is held here
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_all_launches()
+        if i == TRAIN_STEPS:
+            prev = state        # the last step's input, for the remat step
+        t0 = time.perf_counter()
+        p2, o2, m = step_fn(*state, batch, i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            launches = all_launches()
+        losses.append(m["loss"])
+        if aux_key is not None:
+            auxes.append(m[aux_key])
+        state = (p2, o2)
     peak_bytes = torch.cuda.max_memory_allocated()
     peak, step_peak = peak_bytes / 2 ** 30, (peak_bytes - base) / 2 ** 30
     losses = torch.stack(losses).tolist()
+    auxes = torch.stack(auxes).tolist() if auxes else []
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
     tok_s = TRAIN_B * TRAIN_T / step_ms * 1e3
-    log(f"  train {SERVE_ARCH} bf16 B={TRAIN_B} T={TRAIN_T} lr {TRAIN_LR}: "
-        f"step ms {[round(t, 1) for t in times]} (first is the warm step), "
-        f"median {step_ms:.1f} ms, {tok_s:.0f} tokens/s, peak memory "
-        f"{peak:.2f} GiB ({step_peak:.2f} above the step's input state); "
-        f"losses {[round(x, 4) for x in losses]}; launches "
-        f"a step {launches}")
+    log(f"  train {label} bf16 B={TRAIN_B} T={TRAIN_T} lr {TRAIN_LR}: step "
+        f"ms {[round(t, 1) for t in times]} (first is the warm step), median "
+        f"{step_ms:.1f} ms, {tok_s:.0f} tokens/s, peak memory {peak:.2f} GiB "
+        f"({step_peak:.2f} above the step's input state); losses "
+        f"{[round(x, 4) for x in losses]}; "
+        + (f"{aux_key} {[round(x, 4) for x in auxes]}; " if aux_key else "")
+        + f"launches a step {launches}")
     if launches != want:
         raise AssertionError(f"train launches {launches}, want {want}")
-    log(f"  plain-torch RoPE rotations (ref.rope_rotate_hm) in the "
-        f"{TRAIN_STEPS} timed steps: {len(rotations)}")
-    if rotations:
-        raise AssertionError(f"{len(rotations)} plain RoPE rotations ran")
-    if not all(math.isfinite(x) for x in losses) or \
+    if not all(math.isfinite(x) for x in losses + auxes) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
 
-    # remat: the last step again from its input state, blocks recomputed
+    if profiled is None:
+        profiled = {name: tuple(k[3:]) for name, k in TRAIN_KERNELS.items()}
+    want_calls = {fam: per_call * launches[name]
+                  for name, (fam, per_call) in profiled.items()}
+    for attempt in range(3):
+        with spans():
+            prof = family_profile("train step", lambda: step_fn(
+                *state, batch, TRAIN_STEPS + 1), by_op=by_op)
+        got = {fam: prof["calls"].get(fam, 0) for fam in want_calls}
+        if got == want_calls:
+            break
+        log(f"  the profiled step holds {got} training kernels, the "
+            f"counters {want_calls}")
+    else:
+        raise AssertionError("three profiled steps lost kernel events")
+
+    # the last step's momentum goes before the remat step: the card then
+    # holds its input state, its output and the last step's parameters
+    state = state[0]
+    gc.collect()
+    torch.cuda.empty_cache()
     remat_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True,
                                   remat=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2697,37 +2792,70 @@ def phase_lm_train():
     rp, _, rm = remat_fn(*prev, batch, TRAIN_STEPS)
     torch.cuda.synchronize()
     remat_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    diff, bad = 0.0, []
-    for i, (a, b) in enumerate(zip(tree.leaves(rp), tree.leaves(state[0]))):
+    diff, bad, equal = 0.0, [], True
+    for i, (a, b) in enumerate(zip(tree.leaves(rp), tree.leaves(state))):
+        equal = equal and torch.equal(a, b)
         a, b = a.float(), b.float()
         diff = max(diff, float((a - b).abs().max()))
         if bool(((a - b).abs() > BF16_TOL + BF16_TOL * b.abs()).any()):
             bad.append(i)
     loss_diff = abs(float(rm["loss"]) - losses[-1])
     log(f"  remat step: loss {float(rm['loss']):.6f} vs {losses[-1]:.6f} "
-        f"(diff {loss_diff:.3e}), largest parameter difference {diff:.3e}, "
-        f"peak memory {remat_peak:.2f} GiB above its input state (plain "
+        f"(diff {loss_diff:.3e}), largest parameter difference {diff:.3e} "
+        f"({'bit-equal' if equal and loss_diff == 0 else 'not bit-equal'}),"
+        f" peak memory {remat_peak:.2f} GiB above its input state (plain "
         f"step {step_peak:.2f})")
     if bad or loss_diff > BF16_TOL * (1 + abs(losses[-1])):
         raise AssertionError(f"remat step differs: loss {loss_diff}, "
                              f"leaves {bad[:8]}")
-    del rp, rm, prev
-
-    # where the time goes: one profiled step (its output is dropped)
-    prof = family_profile("train step", lambda: step_fn(
-        *state, batch, TRAIN_STEPS + 1))
-    # the profiled step ran the training kernels as the counters say
-    for name, (*_, fam_name, per_call) in TRAIN_KERNELS.items():
-        if prof["calls"].get(fam_name, 0) != per_call * launches[name]:
-            raise AssertionError(f"profiled {fam_name} kernels "
-                                 f"{prof['calls'].get(fam_name)}, want "
-                                 f"{per_call} x {launches[name]}")
-    del state
+    del rp, rm, prev, state
+    gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "times": times,
             "tok_s": tok_s, "peak_gib": peak, "step_peak_gib": step_peak,
-            "remat_peak_gib": remat_peak, "losses": losses,
-            "remat_diff": diff, "breakdown": prof}
+            "remat_peak_gib": remat_peak, "losses": losses, "aux": auxes,
+            "remat_diff": diff, "remat_bit_equal": equal and loss_diff == 0,
+            "breakdown": prof}
+
+
+def phase_lm_train():
+    """Phase 13: full-width qwen3-1.7b training in bf16 (random weights from
+    SERVE_SEED): ``train_steps`` on B=8 rows of T=512 from token_lm. The
+    launch counters of a step must read exactly 57 rmsnorm_residual
+    (forward and backward), 28 of each of swiglu, swiglu_backward,
+    flash_attention_rope and flash_attention_backward, and nothing else;
+    no plain-torch RoPE rotation (``ref.rope_rotate_hm``) may run in any
+    step (the RoPE backward is one kernel launch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_sequences, token_lm
+    from repro_torch.kernels import ref
+    cfg = get_config(SERVE_ARCH)
+    L = cfg.n_layers
+    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
+                                 n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
+    batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
+    want = want_launches(rmsnorm_residual=2 * L + 1,
+                         rmsnorm_residual_backward=2 * L + 1, swiglu=L,
+                         swiglu_backward=L, flash_attention_rope=L,
+                         flash_attention_backward=L)
+    rotations = []
+    plain_rotate = ref.rope_rotate_hm
+
+    def counted_rotate(*args, **kwargs):
+        rotations.append(1)
+        return plain_rotate(*args, **kwargs)
+
+    ref.rope_rotate_hm = counted_rotate
+    try:
+        out = train_steps(SERVE_ARCH, cfg, serve_params(), batch, want)
+    finally:
+        ref.rope_rotate_hm = plain_rotate
+    log(f"  plain-torch RoPE rotations (ref.rope_rotate_hm) in the steps: "
+        f"{len(rotations)}")
+    if rotations:
+        raise AssertionError(f"{len(rotations)} plain RoPE rotations ran")
+    return out
 
 
 def phase_train_cuda_vs_cpu():
@@ -3128,23 +3256,6 @@ def want_launches(**counts):
     return {**{k: 0 for k in all_launches()}, **counts}
 
 
-def mamba_params(cfg):
-    """Random weights from SERVE_SEED at the config's widths, bf16."""
-    import torch
-    from repro_torch import tree
-    from repro_torch.models import transformer as TT
-    t0 = time.perf_counter()
-    params = TT.init_params(SERVE_SEED, cfg)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.leaves(params))
-    log(f"{cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} d_inner "
-        f"{cfg.ssm.d_inner(cfg.d_model)} d_state {cfg.ssm.d_state} dt_rank "
-        f"{cfg.ssm.resolved_dt_rank(cfg.d_model)} vocab {cfg.vocab_size} "
-        f"(untied head), {n_params / 1e9:.3f} B parameters in {cfg.dtype}, "
-        f"drawn in {time.perf_counter() - t0:.1f} s")
-    return params
-
-
 def phase_mamba_serve():
     """Phase 16: full-width falcon-mamba-7b generate in bf16 (random weights
     from SERVE_SEED): B=8 prompts left-padded to 512 (PROMPT_LENS), greedy,
@@ -3160,7 +3271,7 @@ def phase_mamba_serve():
     from repro_torch.models.ssm import DEFAULT_CHUNK
     from repro_torch.serving import generate, make_serve_step, prefill_fused
     cfg = get_config(MAMBA_ARCH)
-    params = mamba_params(cfg)
+    params = model_params(cfg)
     prompts = ragged_prompts(cfg.vocab_size, SERVE_SEED + 1)
     kw = dict(max_new_tokens=SERVE_NEW, prompt_lens=PROMPT_LENS)
     generate(params, cfg, prompts, **kw)                  # warm-up
@@ -3244,11 +3355,11 @@ def mamba_invariance_probe():
     """Why the SSM mixer computes its two products over d_inner on at least
     INVARIANT_ROWS rows: for each, the values of the last M rows of a
     4096-row batch that differ when the M rows are computed alone, with a
-    plain ``x @ w`` and through ``ssm._rows_matmul``. A measurement printed
+    plain ``x @ w`` and through ``layers.rows_matmul``. A measurement printed
     beside phase 16, not a gate."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import ssm
+    from repro_torch.models import layers
     cfg = get_config(MAMBA_ARCH)
     di, dtr = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.resolved_dt_rank(
         cfg.d_model)
@@ -3261,7 +3372,7 @@ def mamba_invariance_probe():
              / di ** 0.5).bfloat16()
         x = torch.randn(4096, di, generator=gen, device="cuda").bfloat16()
         for label, fn in (("x @ w", lambda a: a @ w),
-                          ("_rows_matmul", lambda a: ssm._rows_matmul(a, w))):
+                          ("rows_matmul", lambda a: layers.rows_matmul(a, w))):
             full = fn(x)
             counts = {M: int((fn(x[-M:]) != full[-M:]).sum())
                       for M in (512, 64, 8, 1)}
@@ -3271,121 +3382,32 @@ def mamba_invariance_probe():
 
 def phase_mamba_train():
     """Phase 17: falcon-mamba-7b training at full width with the depth cut
-    to MAMBA_TRAIN_LAYERS (bf16, random weights from SERVE_SEED, f32
-    momentum): make_lm_train_step(use_kernels=True) on B=8 rows of T=512
-    from token_lm, lr and clip as phase 13, one warm and TRAIN_STEPS timed
-    steps on the repeated batch. A step's launch counters must read exactly
-    2 mamba_chunk and 2 mamba_chunk_backward a layer, one rmsnorm_residual
-    and one rmsnorm_residual_backward a layer and one more each for the
-    final norm, nothing else; the loss must be finite and fall; a
-    remat=True step from the same state must give the same loss and
-    parameters within BF16_TOL (bit-equality is reported). Step ms,
-    tokens/s, peak memory and a profiled step by kernel family, whose B10,
-    B11 and norm-backward kernel counts must match the counters."""
+    to MAMBA_TRAIN_LAYERS (bf16, random weights from SERVE_SEED):
+    ``train_steps`` on B=8 rows of T=512 from token_lm. A step's launch
+    counters must read exactly 2 mamba_chunk and 2 mamba_chunk_backward a
+    layer, one rmsnorm_residual and one rmsnorm_residual_backward a layer
+    and one more each for the final norm, nothing else; the profiled
+    step's B10, B11 and norm-backward kernel counts must match them."""
     import torch
-    from repro_torch import tree
     from repro_torch.configs import get_config
-    from repro_torch.core import LargeBatchConfig, Regime
     from repro_torch.data import lm_sequences, token_lm
     from repro_torch.models.ssm import DEFAULT_CHUNK
-    from repro_torch.optim import sgd
-    from repro_torch.train.trainer import make_lm_train_step
     cfg = dataclasses.replace(get_config(MAMBA_ARCH),
                               body_repeats=MAMBA_TRAIN_LAYERS)
     L = cfg.n_layers
-    params = mamba_params(cfg)
     rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
                                  n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
     batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
-    lb = LargeBatchConfig(batch_size=TRAIN_B, base_batch_size=TRAIN_B,
-                          grad_clip=1.0)
-    regime = Regime(base_lr=TRAIN_LR, total_steps=100, drop_every=100)
-    step_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True)
-    state = (params, sgd.init(params))
-    del params
     chunks = L * -(-TRAIN_T // DEFAULT_CHUNK)
     want = want_launches(mamba_chunk=chunks, mamba_chunk_backward=chunks,
                          rmsnorm_residual=L + 1,
                          rmsnorm_residual_backward=L + 1)
-    losses, times, launches = [], [], None
-    for i in range(1 + TRAIN_STEPS):
-        if i == 1:      # only this step's input state is held here
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            reset_all_launches()
-        if i == TRAIN_STEPS:
-            prev = state        # the last step's input, for the remat step
-        t0 = time.perf_counter()
-        p2, o2, m = step_fn(*state, batch, i)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if i == 1:
-            launches = all_launches()
-        losses.append(m["loss"])
-        state = (p2, o2)
-    peak_bytes = torch.cuda.max_memory_allocated()
-    peak, step_peak = peak_bytes / 2 ** 30, (peak_bytes - base) / 2 ** 30
-    losses = torch.stack(losses).tolist()
-    step_ms = sorted(times[1:])[len(times[1:]) // 2]
-    tok_s = TRAIN_B * TRAIN_T / step_ms * 1e3
-    log(f"  train {cfg.name} ({L} layers) bf16 B={TRAIN_B} T={TRAIN_T} lr "
-        f"{TRAIN_LR}: step ms {[round(t, 1) for t in times]} (first is the "
-        f"warm step), median {step_ms:.1f} ms, {tok_s:.0f} tokens/s, peak "
-        f"memory {peak:.2f} GiB ({step_peak:.2f} above the step's input "
-        f"state); losses {[round(x, 4) for x in losses]}; launches a step "
-        f"{launches}")
-    if launches != want:
-        raise AssertionError(f"train launches {launches}, want {want}")
-    if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-
-    # remat: the last step again from its input state, blocks recomputed
-    remat_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True,
-                                  remat=True)
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()      # also holds the last output
-    rp, _, rm = remat_fn(*prev, batch, TRAIN_STEPS)
-    torch.cuda.synchronize()
-    remat_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    diff, bad, equal = 0.0, [], True
-    for i, (a, b) in enumerate(zip(tree.leaves(rp), tree.leaves(state[0]))):
-        equal = equal and torch.equal(a, b)
-        a, b = a.float(), b.float()
-        diff = max(diff, float((a - b).abs().max()))
-        if bool(((a - b).abs() > BF16_TOL + BF16_TOL * b.abs()).any()):
-            bad.append(i)
-    loss_diff = abs(float(rm["loss"]) - losses[-1])
-    log(f"  remat step: loss {float(rm['loss']):.6f} vs {losses[-1]:.6f} "
-        f"(diff {loss_diff:.3e}), largest parameter difference {diff:.3e} "
-        f"({'bit-equal' if equal and loss_diff == 0 else 'not bit-equal'}),"
-        f" peak memory {remat_peak:.2f} GiB above its input state (plain "
-        f"step {step_peak:.2f})")
-    if bad or loss_diff > BF16_TOL * (1 + abs(losses[-1])):
-        raise AssertionError(f"remat step differs: loss {loss_diff}, "
-                             f"leaves {bad[:8]}")
-    del rp, rm, prev
-
-    # where the time goes: one profiled step (its output is dropped), which
-    # ran B10, B11 and the norm backward as the counters say
-    prof = family_profile("train step", lambda: step_fn(
-        *state, batch, TRAIN_STEPS + 1))
-    counted = [(name, fam_name, per_call) for name, (_, fam_name, per_call)
-               in MAMBA_KERNELS.items()]
-    counted.append(("rmsnorm_residual_backward",
-                    *TRAIN_KERNELS["rmsnorm_residual_backward"][3:]))
-    for name, fam_name, per_call in counted:
-        if prof["calls"].get(fam_name, 0) != per_call * launches[name]:
-            raise AssertionError(f"profiled {fam_name} kernels "
-                                 f"{prof['calls'].get(fam_name)}, want "
-                                 f"{per_call} x {launches[name]}")
-    del state
-    torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "times": times,
-            "tok_s": tok_s, "peak_gib": peak, "step_peak_gib": step_peak,
-            "remat_peak_gib": remat_peak, "losses": losses,
-            "remat_diff": diff, "remat_bit_equal": equal and loss_diff == 0,
-            "breakdown": prof}
+    profiled = {name: (fam, per_call) for name, (_, fam, per_call)
+                in MAMBA_KERNELS.items()}
+    profiled["rmsnorm_residual_backward"] = tuple(
+        TRAIN_KERNELS["rmsnorm_residual_backward"][3:])
+    return train_steps(f"{cfg.name} ({L} layers)", cfg, model_params(cfg),
+                       batch, want, profiled=profiled)
 
 
 def phase_mamba_cuda_vs_cpu():
@@ -3825,41 +3847,32 @@ MOE_LABELS = (MOE_OPS, MOE_SCOPES)
 
 
 @contextlib.contextmanager
-def moe_spans():
-    """Every ``moe_apply`` call inside a profiler span named "moe_apply"
-    (a record_function, a few microseconds a call) while the block runs."""
+def profiler_spans(targets):
+    """While the block runs, every call of each (module, function name,
+    span) target runs inside a profiler span of that name (a
+    record_function, a few microseconds a call)."""
     import torch
-    from repro_torch.models import moe as MOE
-    real = MOE.moe_apply
 
-    def spanned(*args, **kwargs):
-        with torch.profiler.record_function("moe_apply"):
-            return real(*args, **kwargs)
+    def spanned(fn, span):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(span):
+                return fn(*args, **kwargs)
+        return call
 
-    MOE.moe_apply = spanned
+    saved = [getattr(mod, name) for mod, name, _ in targets]
+    for (mod, name, span), fn in zip(targets, saved):
+        setattr(mod, name, spanned(fn, span))
     try:
         yield
     finally:
-        MOE.moe_apply = real
+        for (mod, name, _), fn in zip(targets, saved):
+            setattr(mod, name, fn)
 
 
-def moe_params(cfg):
-    """Random weights from SERVE_SEED at the config's widths, bf16."""
-    import torch
-    from repro_torch import tree
-    from repro_torch.models import transformer as TT
-    t0 = time.perf_counter()
-    params = TT.init_params(SERVE_SEED, cfg)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.leaves(params))
-    m = cfg.moe
-    log(f"{cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.head_dim}, {m.n_experts} "
-        f"experts top-{m.top_k} d_expert {m.d_expert}, shared d "
-        f"{m.d_shared}, capacity factor {m.capacity_factor}, vocab "
-        f"{cfg.vocab_size} (untied head), {n_params / 1e9:.3f} B parameters "
-        f"in {cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
-    return params
+def moe_spans():
+    """Every ``moe_apply`` call inside a profiler span named "moe_apply"."""
+    from repro_torch.models import moe as MOE
+    return profiler_spans([(MOE, "moe_apply", "moe_apply")])
 
 
 @contextlib.contextmanager
@@ -3907,7 +3920,7 @@ def phase_moe_serve():
     from repro_torch.models import transformer as TT
     from repro_torch.serving import generate, make_serve_step, prefill_fused
     cfg = get_config(MOE_ARCH)
-    params = moe_params(cfg)
+    params = model_params(cfg)
     prompts = ragged_prompts(cfg.vocab_size, SERVE_SEED + 1)
     kw = dict(max_new_tokens=SERVE_NEW, prompt_lens=PROMPT_LENS)
     generate(params, cfg, prompts, **kw)                  # warm-up
@@ -4098,125 +4111,29 @@ def phase_moe_engine(params):
 
 def phase_moe_train():
     """Phase 23: qwen2-moe-a2.7b training at full width with the depth cut
-    to MOE_TRAIN_LAYERS (bf16, random weights from SERVE_SEED, f32
-    momentum, B=8 x T=512 of token_lm, lr and clip as phase 13; one warm
-    and TRAIN_STEPS timed steps): a step's launch counters must read
-    exactly 5/5 rmsnorm_residual and its backward (two a layer and the
-    final norm), 2/2 swiglu and its backward (the shared expert), 2/2
-    flash_attention_rope and flash_attention_backward, nothing else; the
-    loss must be finite and fall; a remat=True step from the same state
-    must give the same loss and parameters within BF16_TOL. Step ms,
-    tokens/s, peak memory, moe_aux, and a profiled step by family whose
-    training kernels' counts must match the counters."""
+    to MOE_TRAIN_LAYERS (bf16, random weights from SERVE_SEED):
+    ``train_steps`` on B=8 rows of T=512 from token_lm, moe_aux collected:
+    a step's launch counters must read exactly 5/5 rmsnorm_residual and its
+    backward (two a layer and the final norm), 2/2 swiglu and its backward
+    (the shared expert), 2/2 flash_attention_rope and
+    flash_attention_backward, nothing else; the profiled step names the
+    MoE layer's kernels by family (MOE_LABELS)."""
     import torch
-    from repro_torch import tree
     from repro_torch.configs import get_config
-    from repro_torch.core import LargeBatchConfig, Regime
     from repro_torch.data import lm_sequences, token_lm
-    from repro_torch.optim import sgd
-    from repro_torch.train.trainer import make_lm_train_step
-    cfg = dataclasses.replace(get_config(MOE_ARCH),
-                              body_repeats=MOE_TRAIN_LAYERS)
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, body_repeats=MOE_TRAIN_LAYERS)
     L = cfg.n_layers
-    params = moe_params(cfg)
     rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
                                  n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
     batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
-    lb = LargeBatchConfig(batch_size=TRAIN_B, base_batch_size=TRAIN_B,
-                          grad_clip=1.0)
-    regime = Regime(base_lr=TRAIN_LR, total_steps=100, drop_every=100)
-    step_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True)
-    state = (params, sgd.init(params))
-    del params
     want = want_launches(rmsnorm_residual=2 * L + 1,
                          rmsnorm_residual_backward=2 * L + 1, swiglu=L,
                          swiglu_backward=L, flash_attention_rope=L,
                          flash_attention_backward=L)
-    losses, auxes, times, launches = [], [], [], None
-    for i in range(1 + TRAIN_STEPS):
-        if i == 1:      # only this step's input state is held here
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            reset_all_launches()
-        if i == TRAIN_STEPS:
-            prev = state        # the last step's input, for the remat step
-        t0 = time.perf_counter()
-        p2, o2, m = step_fn(*state, batch, i)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if i == 1:
-            launches = all_launches()
-        losses.append(m["loss"])
-        auxes.append(m["moe_aux"])
-        state = (p2, o2)
-    peak_bytes = torch.cuda.max_memory_allocated()
-    peak, step_peak = peak_bytes / 2 ** 30, (peak_bytes - base) / 2 ** 30
-    losses = torch.stack(losses).tolist()
-    auxes = torch.stack(auxes).tolist()
-    step_ms = sorted(times[1:])[len(times[1:]) // 2]
-    tok_s = TRAIN_B * TRAIN_T / step_ms * 1e3
-    log(f"  train {cfg.name} ({L} of {get_config(MOE_ARCH).n_layers} "
-        f"layers, full width) bf16 "
-        f"B={TRAIN_B} T={TRAIN_T} lr {TRAIN_LR}: step ms "
-        f"{[round(t, 1) for t in times]} (first is the warm step), median "
-        f"{step_ms:.1f} ms, {tok_s:.0f} tokens/s, peak memory {peak:.2f} "
-        f"GiB ({step_peak:.2f} above the step's input state); losses "
-        f"{[round(x, 4) for x in losses]}; moe_aux "
-        f"{[round(x, 4) for x in auxes]}; launches a step {launches}")
-    if launches != want:
-        raise AssertionError(f"train launches {launches}, want {want}")
-    if not all(math.isfinite(x) for x in losses + auxes) or \
-            not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-
-    # remat: the last step again from its input state, blocks recomputed
-    remat_fn = make_lm_train_step(cfg, lb, regime, use_kernels=True,
-                                  remat=True)
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()      # also holds the last output
-    rp, _, rm = remat_fn(*prev, batch, TRAIN_STEPS)
-    torch.cuda.synchronize()
-    remat_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    diff, bad, equal = 0.0, [], True
-    for i, (a, b) in enumerate(zip(tree.leaves(rp), tree.leaves(state[0]))):
-        equal = equal and torch.equal(a, b)
-        a, b = a.float(), b.float()
-        diff = max(diff, float((a - b).abs().max()))
-        if bool(((a - b).abs() > BF16_TOL + BF16_TOL * b.abs()).any()):
-            bad.append(i)
-    loss_diff = abs(float(rm["loss"]) - losses[-1])
-    log(f"  remat step: loss {float(rm['loss']):.6f} vs {losses[-1]:.6f} "
-        f"(diff {loss_diff:.3e}), largest parameter difference {diff:.3e} "
-        f"({'bit-equal' if equal and loss_diff == 0 else 'not bit-equal'}),"
-        f" peak memory {remat_peak:.2f} GiB above its input state (plain "
-        f"step {step_peak:.2f})")
-    if bad or loss_diff > BF16_TOL * (1 + abs(losses[-1])):
-        raise AssertionError(f"remat step differs: loss {loss_diff}, "
-                             f"leaves {bad[:8]}")
-    del rp, rm, prev
-
-    # a profiled step whose training kernels' counts match the counters;
-    # late in a run the profiler has lost a window's first events, so a
-    # window that lost some is profiled again, three windows at most
-    want_calls = {fam: per_call * launches[name] for name, (
-        *_, fam, per_call) in TRAIN_KERNELS.items()}
-    for attempt in range(3):
-        with moe_spans():
-            prof = family_profile("train step", lambda: step_fn(
-                *state, batch, TRAIN_STEPS + 1), by_op=MOE_LABELS)
-        got = {fam: prof["calls"].get(fam, 0) for fam in want_calls}
-        if got == want_calls:
-            break
-        log(f"  the profiled step holds {got} training kernels, the "
-            f"counters {want_calls}")
-    else:
-        raise AssertionError("three profiled steps lost kernel events")
-    del state
-    torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "times": times,
-            "tok_s": tok_s, "peak_gib": peak, "step_peak_gib": step_peak,
-            "remat_peak_gib": remat_peak, "losses": losses, "aux": auxes,
-            "remat_diff": diff, "breakdown": prof}
+    return train_steps(f"{cfg.name} ({L} of {full.n_layers} layers, full "
+                       f"width)", cfg, model_params(cfg), batch, want,
+                       by_op=MOE_LABELS, spans=moe_spans, aux_key="moe_aux")
 
 
 @contextlib.contextmanager
@@ -4383,6 +4300,632 @@ def moe_summary(ms_, me_, mt_):
             moe_kernel_line(ms_, me_, mt_).items()))
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the encoder-decoder and vision-LM families, and jamba's hybrid
+# stack (Mamba + attention + MoE)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "llama-3.2-vision-11b"
+JAMBA_ARCH = "jamba-v0.1-52b"
+ENCDEC_P = 128                     # seamless's prompts, left-padded ...
+ENCDEC_LENS = (128, 112, 96, 80, 64, 48, 32, 16)     # ... to these lengths
+ENCDEC_FRAMES = 512                # the served memory: encoded stub frames
+VLM_TRAIN_LAYERS = 10              # full width, 2 of llama-vision's 8 periods
+JAMBA_LAYERS = 16                  # full width, 2 of jamba's 4 periods
+NEW_REDUCED = tuple(f"{a}-reduced" for a in (
+    ENCDEC_ARCH, VLM_ARCH, JAMBA_ARCH, "phi3-medium-14b", "gemma3-27b",
+    "h2o-danube-3-4b"))
+# B9's key tile and B12's chunk (64 slots, or 32 at hd 128 in bf16): a
+# left pad that is a multiple of it keeps a row's keys where its unpadded
+# run has them, so the row's sums meet the same operands in the same order
+KEY_TILE = 64
+# the profiler spans around the encoder and each cross-attention sublayer;
+# a cuBLAS or other kernel launched inside one is counted as its family
+MEMORY_SCOPES = ("encode", "cross_attention")
+
+
+def memory_spans():
+    """Every ``encode`` call inside a profiler span named "encode", and
+    every cross-attention projection and attention (``cross_kv``,
+    ``cross_attention_apply``) inside one named "cross_attention"."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TT
+    return profiler_spans([(TT, "encode", "encode"),
+                           (L, "cross_kv", "cross_attention"),
+                           (L, "cross_attention_apply", "cross_attention")])
+
+
+def scope_labels(events):
+    """{correlation id: span} of every host op inside a MEMORY_SCOPES span
+    on its thread (a ``by_op`` of ``profile_device_ms``)."""
+    import bisect
+    spans = {}
+    for ev in events:
+        if ev.device_type().name == "CPU" and ev.name() in MEMORY_SCOPES:
+            spans.setdefault(ev.start_thread_id(), []).append(
+                (ev.start_ns(), ev.end_ns(), ev.name()))
+    starts = {}
+    for th, v in spans.items():
+        v.sort()
+        starts[th] = [a for a, _, _ in v]
+    label = {}
+    for ev in events:
+        th = ev.start_thread_id()
+        if ev.device_type().name != "CPU" or th not in spans:
+            continue
+        i = bisect.bisect_right(starts[th], ev.start_ns()) - 1
+        if i >= 0 and spans[th][i][1] >= ev.end_ns():
+            label[ev.correlation_id()] = spans[th][i][2]
+    return label
+
+
+def memory_input(cfg, B, n, seed):
+    """The family's stub memory input, 0.1 * normal in the config's dtype
+    on the card, as the reference's launchers draw it: frames (B, n,
+    encoder d_model) or projected image embeddings (B, n, d_model)."""
+    import torch
+    from repro_torch.models import layers as L
+    d = cfg.encoder.d_model if cfg.encoder is not None else cfg.d_model
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, n, d, generator=g, device="cuda")
+    return (0.1 * x).to(L.torch_dtype(cfg.dtype))
+
+
+def memory_launches(cfg, passes):
+    """The serving kernels' launches of ``passes`` forward passes of a
+    dense decoder with cross blocks (the first a prefill) and of one
+    encoder run: each layer's pre-attention norm and fused residual norm,
+    each cross block's norm_x, the final norm; a SwiGLU a layer; the flash
+    prefill, then a decode a layer a step. The encoder's non-causal
+    attention and every cross-attention are plain, as in the reference."""
+    L = cfg.n_layers
+    n_cross = sum(s.cross_attn for s in cfg.layers)
+    norms, swiglu = (2 * L + n_cross + 1) * passes, L * passes
+    if cfg.encoder is not None:
+        norms += 2 * cfg.encoder.n_layers + 1
+        swiglu += cfg.encoder.n_layers
+    return want_launches(flash_attention=L, flash_decode=L * (passes - 1),
+                         rmsnorm_residual=norms, swiglu=swiglu)
+
+
+def check_solo_rows(label, params, cfg, prompts, lens, out, memory_of):
+    """Rows 0 and B - 1 of a batched generate against the same row alone,
+    its memory computed alone (``memory_of(row)``), its prompt left-padded
+    by its batch pad modulo KEY_TILE (unpadded where that pad is a
+    multiple of the tile): the kernels tile a row's keys from slot 0, so
+    pads that agree modulo the tile put every real key at the same column
+    of its tile (``csrc/flash_attention.cu``'s BK). A row whose pad is not
+    a multiple of the tile is also run unpadded, and whether that run
+    equals the batch is printed."""
+    from repro_torch.serving import generate
+    P, n = prompts.shape[1], out.shape[1] - prompts.shape[1]
+    for b in (0, len(lens) - 1):
+        Lb = lens[b]
+        width = Lb + (P - Lb) % KEY_TILE       # its pad modulo the tile
+        runs = [(width, "alone" + (f", left-padded to {width}"
+                                   if width > Lb else " unpadded"))]
+        if width > Lb:
+            runs.append((Lb, "alone unpadded (not a gate)"))
+        for w, what in runs:
+            kw = dict(prompt_lens=[Lb]) if w > Lb else {}
+            solo = generate(params, cfg, prompts[b:b + 1, P - w:],
+                            memory=memory_of(b), max_new_tokens=n, **kw)
+            solo, got = solo[0, w:].tolist(), out[b, P:].tolist()
+            same = solo == got
+            log(f"  {label} row {b} (prompt {Lb}, pad {P - Lb}) {what}: "
+                f"{'equal' if same else 'DIFFERENT'}; batch {got[:8]}... "
+                f"solo {solo[:8]}...")
+            if not same and w == width:
+                raise AssertionError(f"{label} row {b} differs from its "
+                                     f"run alone")
+
+
+def phase_memory_serve(arch):
+    """Phases 25 and 27: full-width ``generate(memory=)`` in bf16 (random
+    weights from SERVE_SEED), greedy, 32 new tokens, B=8. seamless: the
+    memory is ``encode`` of ENCDEC_FRAMES stub frames (0.1 * normal), the
+    prompts left-padded to ENCDEC_P (ENCDEC_LENS); llama-vision: 1600
+    stub image embeddings, the prompts of phase 7. The launch counters
+    must show exactly ``memory_launches`` for the encoder and the
+    generate, nothing else; a second run gives the same memory and tokens
+    bit for bit; rows 0 and 7 equal their runs alone
+    (``check_solo_rows``). Encoder ms, prefill ms (the cross cache's
+    projection and the fused prefill), decode ms a step, peak memory; a
+    profiled prefill and decode step, and one profiled encode + generate,
+    by family (the encoder's and the cross-attentions' cuBLAS and other
+    kernels named by their span). Returns the measurements."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import generate, make_serve_step, prefill_fused
+    cfg = get_config(arch)
+    params = model_params(cfg)
+    if cfg.encoder is not None:
+        P, lens, n_mem = ENCDEC_P, ENCDEC_LENS, ENCDEC_FRAMES
+    else:
+        P, lens, n_mem = SERVE_P, PROMPT_LENS, cfg.vision.n_image_tokens
+    prompts = ragged_prompts(cfg.vocab_size, SERVE_SEED + 1, P, lens)
+    inputs = memory_input(cfg, SERVE_B, n_mem, SERVE_SEED + 2)
+
+    @torch.no_grad()
+    def memory_of(x):
+        return TT.encode(params, cfg, x, use_kernels=True) \
+            if cfg.encoder is not None else x
+
+    n = SERVE_NEW
+    kw = dict(max_new_tokens=n, prompt_lens=lens)
+    generate(params, cfg, prompts, memory=memory_of(inputs), **kw)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    memory = memory_of(inputs)
+    out = generate(params, cfg, prompts, memory=memory, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = memory_launches(cfg, n)
+    log(f"  {cfg.name}: memory {tuple(memory.shape)}, prompts "
+        f"{tuple(prompts.shape)} ragged {lens}; encode + generate: out "
+        f"{tuple(out.shape)} wall {wall * 1e3:.1f} ms "
+        f"({SERVE_B * n / wall:.1f} new tokens/s end to end), peak memory "
+        f"{peak:.2f} GiB; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{arch} launches {launches}, want {want}")
+    if tuple(out.shape) != (SERVE_B, P + n) or \
+            not bool((out[:, P:] < cfg.vocab_size).all()) or \
+            not bool((out[:, P:] >= 0).all()) or \
+            not torch.equal(out[:, :P], prompts):
+        raise AssertionError("generate's output is malformed")
+    again_mem = memory_of(inputs)
+    again = generate(params, cfg, prompts, memory=again_mem, **kw)
+    same = torch.equal(again, out) and torch.equal(again_mem, memory)
+    log(f"  a second encode + generate: memory and tokens "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("two runs gave different memories or tokens")
+    del again_mem, again
+    check_solo_rows(cfg.name, params, cfg, prompts, lens, out,
+                    lambda b: memory_of(inputs[b:b + 1]))
+
+    # encoder, prefill and decode times (CUDA events, warm)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    off = serve_offsets(lens, P)
+    enc, pre = [], []
+    for _ in range(3):
+        start.record()
+        memory = memory_of(inputs)
+        end.record()
+        torch.cuda.synchronize()
+        enc.append(start.elapsed_time(end))
+        cache = TT.init_cache(cfg, SERVE_B, P + n, memory_len=n_mem)
+        start.record()
+        TT.build_cross_cache(params, cfg, memory, cache)
+        last, cache = prefill_fused(params, cfg, prompts, cache, offsets=off)
+        end.record()
+        torch.cuda.synchronize()
+        pre.append(start.elapsed_time(end))
+    step = make_serve_step(cfg)
+    tok = last.argmax(-1)[:, None]
+    start.record()
+    for i in range(n - 1):
+        tok, cache = step(params, cache, tok, P + i, offsets=off)
+    end.record()
+    torch.cuda.synchronize()
+    dec = start.elapsed_time(end) / (n - 1)
+    enc_ms = sorted(enc)[1] if cfg.encoder is not None else 0.0
+    prefill_ms = sorted(pre)[1]
+    log(f"  encoder {enc_ms:.2f} ms for {SERVE_B}x{n_mem} frames; prefill "
+        f"(cross cache + fused prefill) {prefill_ms:.2f} ms (runs "
+        f"{[round(t, 2) for t in pre]}) for {SERVE_B}x{P} tokens; decode "
+        f"{dec:.3f} ms a step ({SERVE_B / dec * 1e3:.1f} tokens/s at "
+        f"B={SERVE_B})")
+
+    def prefill_call():
+        c = TT.init_cache(cfg, SERVE_B, P + n, memory_len=n_mem)
+        TT.build_cross_cache(params, cfg, memory, c)
+        return prefill_fused(params, cfg, prompts, c, offsets=off)
+
+    with memory_spans():
+        breakdown = {
+            "decode step": family_profile("decode step", lambda: step(
+                params, cache, tok, P + n - 2, offsets=off),
+                by_op=scope_labels),
+            "prefill": family_profile("prefill", prefill_call,
+                                      by_op=scope_labels)}
+        del cache
+        busy, kernels = profile_device_ms(
+            lambda: generate(params, cfg, prompts, memory=memory_of(inputs),
+                             **kw), reps=1, warm=False, by_op=scope_labels)
+    fam, calls = by_family(kernels)
+    log(f"  profiled encode + generate: device busy {busy or 0.0:.2f} ms of "
+        f"{wall * 1e3:.1f}; device ms by family "
+        f"{ {k: round(v, 3) for k, v in sorted(fam.items())} } (kernels "
+        f"{dict(sorted(calls.items()))})")
+    del params, memory, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_ms": wall * 1e3, "encode_ms": enc_ms,
+            "prefill_ms": prefill_ms, "decode_ms": dec, "peak_gib": peak,
+            "breakdown": breakdown, "families": fam, "calls": calls, "P": P}
+
+
+def phase_memory_train(arch, layers=None):
+    """Phases 26 and 28: a training step at full width with the memory in
+    the batch (seamless: TRAIN_T // 4 = 128 stub frames through the
+    encoder; llama-vision: 1600 stub image embeddings), on B=8 x T=512
+    rows of token_lm, as ``train_steps`` (random weights from SERVE_SEED).
+    ``layers`` cuts the depth. A step must launch exactly,
+    forward and backward, a fused norm for each layer's two norms, each
+    cross block's norm_x, the final norm and the encoder's 2 a layer + 1;
+    a SwiGLU a layer (the encoder's too); a RoPE flash attention a decoder
+    layer; nothing else (the encoder's attention and every
+    cross-attention are plain)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_sequences, token_lm
+    full = get_config(arch)
+    cfg = full
+    if layers is not None:
+        cfg = dataclasses.replace(
+            full, body_repeats=layers // len(full.body_pattern))
+    L, Le = cfg.n_layers, cfg.encoder.n_layers if cfg.encoder else 0
+    n_cross = sum(s.cross_attn for s in cfg.layers)
+    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
+                                 n_tokens=TRAIN_B * TRAIN_T), TRAIN_T)
+    batch = {"tokens": torch.as_tensor(rows, device="cuda").long()}
+    if cfg.encoder is not None:
+        batch["frames"] = memory_input(
+            cfg, TRAIN_B, TRAIN_T // cfg.encoder.frame_ratio, TRAIN_SEED)
+    else:
+        batch["image_embeds"] = memory_input(
+            cfg, TRAIN_B, cfg.vision.n_image_tokens, TRAIN_SEED)
+    norms = 2 * L + n_cross + 1 + (2 * Le + 1 if Le else 0)
+    want = want_launches(rmsnorm_residual=norms,
+                         rmsnorm_residual_backward=norms, swiglu=L + Le,
+                         swiglu_backward=L + Le, flash_attention_rope=L,
+                         flash_attention_backward=L)
+    mem = {k: tuple(v.shape) for k, v in batch.items() if k != "tokens"}
+    log(f"train {cfg.name}: {L} of {full.n_layers} decoder layers "
+        f"({n_cross} cross), encoder {Le} layers, memory {mem}")
+    # the parameters are held by the steps alone
+    out = train_steps(f"{cfg.name} ({L} of {full.n_layers} layers)", cfg,
+                      model_params(cfg), batch, want, by_op=scope_labels,
+                      spans=memory_spans)
+    out["layers"] = L
+    return out
+
+
+def phase_jamba():
+    """Phase 29: jamba-v0.1-52b in bf16 at full width, the depth cut to
+    JAMBA_LAYERS (2 of 4 periods: 14 Mamba and 2 attention layers, 8 MoE
+    and 8 dense feed-forwards; random weights from SERVE_SEED). ``generate``
+    as phase 7 (the prompts of PROMPT_LENS, 32 greedy tokens): exactly a
+    flash prefill and a decode a step for each attention layer, two
+    mamba_chunk launches for each Mamba layer (none in decode), 2L + 1
+    fused norms and a SwiGLU for each dense layer a pass, nothing else; a
+    second run bit-equal; the dropped shares at prefill and decode;
+    prefill ms, decode ms a step, peak memory; a profiled prefill, decode
+    step and generate by family (the MoE layer's ops as phase 21's). Then
+    ContinuousEngine on the first MOE_ENGINE_REQUESTS requests of
+    ENGINE_TRACE with phase 10's slots and pages: paged attention for the
+    attention layers and SSM states for the Mamba layers in one engine;
+    every request completes; exactly a paged decode an attention layer a
+    step, a flash prefill an attention layer and one mamba_chunk a 256
+    prompt tokens a Mamba layer an admission, the norms and SwiGLUs a
+    pass; useful tokens/s and a profiled run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as TB
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.ssm import DEFAULT_CHUNK
+    from repro_torch.serving import (ContinuousEngine, generate,
+                                     make_serve_step, poisson_trace,
+                                     prefill_fused)
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(
+        full, body_repeats=JAMBA_LAYERS // len(full.body_pattern))
+    params = model_params(cfg)
+    L, n = cfg.n_layers, SERVE_NEW
+    n_attn = sum(s.mixer == "attn" for s in cfg.layers)
+    n_ssm = sum(s.mixer == "ssm" for s in cfg.layers)
+    n_dense = sum(s.ff == "dense" for s in cfg.layers)
+
+    def chunks(P):
+        return -(-P // DEFAULT_CHUNK)
+
+    prompts = ragged_prompts(cfg.vocab_size, SERVE_SEED + 1)
+    kw = dict(max_new_tokens=n, prompt_lens=PROMPT_LENS)
+    generate(params, cfg, prompts, **kw)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = want_launches(flash_attention=n_attn,
+                         flash_decode=n_attn * (n - 1),
+                         mamba_chunk=n_ssm * chunks(SERVE_P),
+                         rmsnorm_residual=(2 * L + 1) * n,
+                         swiglu=n_dense * n)
+    log(f"  generate ({L} of {full.n_layers} layers: {n_ssm} mamba, "
+        f"{n_attn} attention, {L - n_dense} MoE): out {tuple(out.shape)} "
+        f"wall {wall * 1e3:.1f} ms ({SERVE_B * n / wall:.1f} new tokens/s "
+        f"end to end), peak memory {peak:.2f} GiB; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{JAMBA_ARCH} launches {launches}, want {want}")
+    if tuple(out.shape) != (SERVE_B, SERVE_P + n) or \
+            not bool((out[:, SERVE_P:] < cfg.vocab_size).all()) or \
+            not bool((out[:, SERVE_P:] >= 0).all()) or \
+            not torch.equal(out[:, :SERVE_P], prompts):
+        raise AssertionError("generate's output is malformed")
+    with drops_counted({}, SERVE_P) as counts:
+        again = generate(params, cfg, prompts, **kw)
+    same = torch.equal(again, out)
+    shares = drop_shares(counts)
+    log(f"  a second generate: tokens {'bit-equal' if same else 'DIFFERENT'}"
+        f"; dropped assignments: prefill {shares['prefill']:.4f} (C = "
+        f"{cfg.moe.tokens_capacity(SERVE_P)} a sequence of {SERVE_P}), decode "
+        f"{shares['decode']:.4f} (C = {cfg.moe.tokens_capacity(SERVE_B)}: "
+        f"the {SERVE_B} rows pool)")
+    if not same:
+        raise AssertionError("two generate runs gave different tokens")
+
+    off = serve_offsets(PROMPT_LENS, SERVE_P)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    pre = []
+    for _ in range(3):
+        cache = TT.init_cache(cfg, SERVE_B, SERVE_P + n)
+        start.record()
+        last, cache = prefill_fused(params, cfg, prompts, cache, offsets=off)
+        end.record()
+        torch.cuda.synchronize()
+        pre.append(start.elapsed_time(end))
+    step = make_serve_step(cfg)
+    tok = last.argmax(-1)[:, None]
+    start.record()
+    for i in range(n - 1):
+        tok, cache = step(params, cache, tok, SERVE_P + i, offsets=off)
+    end.record()
+    torch.cuda.synchronize()
+    dec = start.elapsed_time(end) / (n - 1)
+    prefill_ms = sorted(pre)[1]
+    log(f"  prefill {prefill_ms:.2f} ms (runs {[round(t, 2) for t in pre]}) "
+        f"for {SERVE_B}x{SERVE_P} tokens; decode {dec:.3f} ms a step "
+        f"({SERVE_B / dec * 1e3:.1f} tokens/s at B={SERVE_B})")
+    with moe_spans():
+        breakdown = {
+            "decode step": family_profile("decode step", lambda: step(
+                params, cache, tok, SERVE_P + n - 2, offsets=off),
+                by_op=MOE_LABELS),
+            "prefill": family_profile("prefill", lambda: prefill_fused(
+                params, cfg, prompts,
+                TT.init_cache(cfg, SERVE_B, SERVE_P + n), offsets=off),
+                by_op=MOE_LABELS)}
+        del cache
+        busy, kernels = profile_device_ms(
+            lambda: generate(params, cfg, prompts, **kw), reps=1, warm=False,
+            by_op=MOE_LABELS)
+    fam, calls = by_family(kernels)
+    log(f"  profiled generate: device busy {busy or 0.0:.2f} ms of "
+        f"{wall * 1e3:.1f}; device ms by family "
+        f"{ {k: round(v, 3) for k, v in sorted(fam.items())} } (kernels "
+        f"{dict(sorted(calls.items()))})")
+    serve = {"launches": launches, "wall_ms": wall * 1e3,
+             "prefill_ms": prefill_ms, "decode_ms": dec, "peak_gib": peak,
+             "drop_shares": shares, "breakdown": breakdown,
+             "families": fam, "calls": calls}
+    torch.cuda.empty_cache()
+
+    # the engine: pages for the attention layers, states for the SSM ones
+    trace = poisson_trace(cfg, **ENGINE_TRACE)[:MOE_ENGINE_REQUESTS]
+    ekw = dict(num_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+               layout="paged", page_size=ENGINE_PAGE)
+    log(f"engine {cfg.name} ({L} layers) bf16: {ekw}, default pool; the "
+        f"first {len(trace)} requests of {ENGINE_TRACE}: prompts "
+        f"{[len(r.prompt) for r in trace]}, "
+        f"{sum(r.max_new_tokens for r in trace)} tokens asked for")
+    eng = ContinuousEngine(params, cfg, **ekw)
+    kinds = {k for _, c in TB.each_layer(eng.cache, cfg) for k in c}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    comps = eng.run(trace)
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    elaunches = all_launches()
+    st = eng.stats()
+    epeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, admits = int(st["steps"]), len(trace)
+    ewant = want_launches(
+        flash_decode_paged=n_attn * steps, flash_attention=n_attn * admits,
+        mamba_chunk=n_ssm * sum(chunks(len(r.prompt)) for r in trace),
+        rmsnorm_residual=(2 * L + 1) * (steps + admits),
+        swiglu=n_dense * (steps + admits))
+    log(f"  {ENGINE_SLOTS} slots, cache kinds {sorted(kinds)}: "
+        f"{ {k: round(v, 3) for k, v in st.items()} }; wall {ewall:.2f} s; "
+        f"peak memory {epeak:.2f} GiB; launches {elaunches}")
+    toks = {i: c.tokens for i, c in comps.items()}
+    bad = [r.id for r in trace if len(toks.get(r.id, ())) != r.max_new_tokens
+           or not all(0 <= t < cfg.vocab_size for t in toks[r.id])]
+    if sorted(toks) != [r.id for r in trace] or bad:
+        raise AssertionError(f"requests incomplete or out of vocabulary: "
+                             f"{bad}")
+    if kinds != {"attn", "ssm"}:
+        raise AssertionError(f"engine cache kinds {kinds}")
+    if elaunches != ewant:
+        raise AssertionError(f"engine launches {elaunches}, want {ewant}")
+    del eng
+    torch.cuda.empty_cache()
+    for attempt in range(2):
+        eng = ContinuousEngine(params, cfg, **ekw)
+        reset_all_launches()
+        ebusy, ekernels = profile_device_ms(lambda: eng.run(trace), reps=1,
+                                            warm=False, host=False, tries=1)
+        efam, ecalls = by_family(ekernels)
+        paged = all_launches()["flash_decode_paged"]
+        del eng
+        if ecalls.get("flash_decode_paged") == paged:
+            break
+        msg = (f"the profile holds {ecalls.get('flash_decode_paged')} paged "
+               f"decode kernels, the counter {paged}")
+        if attempt == 1:
+            raise AssertionError(msg)
+        log(f"  {msg}; profiling the run again")
+    log(f"  profiled run: device busy {ebusy or 0.0:.1f} ms (idle share "
+        f"{1 - (ebusy or 0.0) / 1e3 / st['elapsed_s']:.3f} of the unprofiled "
+        f"run's {st['elapsed_s']:.2f} s); device ms by family "
+        f"{ {k: round(v, 3) for k, v in sorted(efam.items())} }")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = {"stats": st, "wall_s": ewall, "peak_gib": epeak,
+              "launches": elaunches, "families": efam, "calls": ecalls}
+    return serve, engine
+
+
+def phase_new_cuda_vs_cpu():
+    """Phase 30: the six new configurations reduced, in f32: the same
+    parameters on the card (kernels) and the CPU (the plain model path,
+    ``use_kernels=False``), the memory from the same input on each
+    (seamless: encoded there; llama-vision: the embeddings): jamba's
+    ragged prefill routing equal layer by layer first (the near-tie rule
+    of phase 24); the ragged prefill's logits (its cross cache built from
+    the memory) within TOL; greedy tokens of ragged prompts equal, past
+    gemma3's window of 16; one make_lm_train_step step (its memory input
+    in the batch): loss within LOSS_TOL, parameters within TOL."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import sgd
+    from repro_torch.serving import generate
+    from repro_torch.train.trainer import make_lm_train_step
+    for name in NEW_REDUCED:
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        p_cpu = TT.init_params(3, cfg, device="cpu")
+        p_gpu = tree.map(lambda t: t.cuda(), p_cpu)
+        P, lens, T = 40, (40, 23, 9, 1), 64
+        g = torch.Generator().manual_seed(4)
+        prompts = torch.randint(0, cfg.vocab_size, (len(lens), P),
+                                generator=g)
+        tokens = torch.randint(0, cfg.vocab_size, (4, T), generator=g)
+        mem_key, n_mem = None, 0
+        if cfg.encoder is not None:
+            mem_key, n_mem = "frames", TT.memory_len(cfg, T)
+            width = cfg.encoder.d_model
+        elif cfg.vision is not None:
+            mem_key, n_mem = "image_embeds", TT.memory_len(cfg, T)
+            width = cfg.d_model
+        mem_in = None if mem_key is None else \
+            0.1 * torch.randn(len(lens), n_mem, width, generator=g)
+        lb = LargeBatchConfig(batch_size=4, base_batch_size=4, grad_clip=1.0)
+        regime = Regime(base_lr=0.05, total_steps=10, drop_every=10)
+        outs, logits, steps, routes = {}, {}, {}, {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            kern = dev == "cuda"
+            memory = None
+            batch = {"tokens": tokens.to(dev)}
+            if mem_key is not None:
+                batch[mem_key] = mem_in.to(dev)
+                with torch.no_grad():
+                    memory = TT.get_memory(p, cfg, batch, use_kernels=kern)
+            outs[dev] = generate(p, cfg, prompts, max_new_tokens=12,
+                                 prompt_lens=lens, memory=memory,
+                                 use_kernels=kern, device=dev).cpu()
+            cache = TT.init_cache(cfg, len(lens), P + 1, memory_len=n_mem,
+                                  device=dev, layout="head" if kern
+                                  else "seq")
+            if memory is not None:
+                TT.build_cross_cache(p, cfg, memory, cache)
+            off = torch.tensor([P - n_ for n_ in lens], device=dev,
+                               dtype=torch.int32)
+            with routing_recorded([]) as routes[dev]:
+                lg, _ = TT.prefill_forward(p, cfg, prompts.to(dev), cache,
+                                           use_kernels=kern, offsets=off)
+            logits[dev] = lg.cpu()
+            step = make_lm_train_step(cfg, lb, regime, use_kernels=kern)
+            p2, _, m = step(p, sgd.init(p), batch, 0)
+            steps[dev] = (float(m["loss"]),
+                          [t.cpu() for t in tree.leaves(p2)])
+        log(f"new configs cuda vs cpu: {cfg.name} f32 ({cfg.n_layers} "
+            f"layers), B={len(lens)} P={P} ragged {lens}, 12 new tokens, "
+            f"memory {mem_key} x{n_mem}; one train step B=4 T={T}: loss "
+            f"{steps['cuda'][0]:.7f} vs {steps['cpu'][0]:.7f}")
+        if cfg.moe is not None:
+            same_routing(f"{cfg.name} prefill routing", routes["cuda"],
+                         routes["cpu"])
+        check_close("prefill logits", logits["cuda"], logits["cpu"], TOL)
+        same = torch.equal(outs["cuda"], outs["cpu"])
+        log(f"  greedy tokens {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{cfg.name}: greedy tokens differ between "
+                                 f"cuda and cpu")
+        check_close("train step loss", torch.tensor(steps["cuda"][0]),
+                    torch.tensor(steps["cpu"][0]), LOSS_TOL)
+        check_close("train step params",
+                    torch.cat([t.reshape(-1) for t in steps["cuda"][1]]),
+                    torch.cat([t.reshape(-1) for t in steps["cpu"][1]]), TOL)
+
+
+def memory_kernel_line(results):
+    """The slice's kernels: device ms and launches in each profiled run
+    (encode + generate of seamless and llama-vision, jamba's generate and
+    engine run; the train steps' training kernels)."""
+    parts = []
+    serve_fams = {"rmsnorm_residual": "rmsnorm_residual",
+                  "swiglu": "swiglu", "flash_attention": "flash_fwd",
+                  "flash_decode": "flash_decode",
+                  "flash_decode_paged": "flash_decode_paged",
+                  "mamba_chunk": "mamba_chunk_fwd"}
+    train_fams = {"rmsnorm_residual": "rmsnorm_residual", "swiglu": "swiglu",
+                  **{name: fam for name, (*_, fam, _) in
+                     TRAIN_KERNELS.items()}}
+    for label, run in results.items():
+        fams = train_fams if "train" in label else serve_fams
+        src = run["breakdown"] if "train" in label else run
+        rows = [f"{name} {src['families'].get(fam, 0.0):.3f} ms "
+                f"{run['launches'][name]} launches"
+                for name, fam in fams.items() if run["launches"][name]]
+        parts.append(f"{label}: " + ", ".join(rows))
+    log("memory and hybrid path kernels (device ms and launches): "
+        + "; ".join(parts))
+
+
+def memory_summary(runs):
+    """Slice 8's end-to-end numbers and its kernels' line."""
+    for label in ("seamless generate", "llama-vision generate"):
+        r = runs[label]
+        log(f"serve {label.split()[0]} (B={SERVE_B}, P={r['P']} ragged, "
+            f"{SERVE_NEW} new tokens): encode + generate {r['wall_ms']:.1f} "
+            f"ms, encoder {r['encode_ms']:.2f} ms, prefill "
+            f"{r['prefill_ms']:.2f} ms, decode {r['decode_ms']:.3f} ms a "
+            f"step, peak {r['peak_gib']:.2f} GiB")
+    for label in ("seamless train", "llama-vision train"):
+        r = runs[label]
+        log(f"train {label.split()[0]} ({r['layers']} decoder layers, bf16, "
+            f"B={TRAIN_B}, T={TRAIN_T}): median step {r['step_ms']:.1f} ms, "
+            f"{r['tok_s']:.0f} tokens/s, peak {r['peak_gib']:.2f} GiB")
+    js, je = runs["jamba generate"], runs["jamba engine"]
+    log(f"serve {JAMBA_ARCH} ({JAMBA_LAYERS} layers, B={SERVE_B}, "
+        f"P={SERVE_P} ragged, {SERVE_NEW} new tokens): generate "
+        f"{js['wall_ms']:.1f} ms, prefill {js['prefill_ms']:.2f} ms, decode "
+        f"{js['decode_ms']:.3f} ms a step, peak {js['peak_gib']:.2f} GiB, "
+        f"dropped assignments "
+        f"{ {k: round(v, 4) for k, v in js['drop_shares'].items()} }; "
+        f"engine ({MOE_ENGINE_REQUESTS} requests, {je['stats']['steps']:.0f} "
+        f"steps) {je['stats']['useful_tok_s']:.1f} useful tokens/s, peak "
+        f"{je['peak_gib']:.2f} GiB")
+    memory_kernel_line(runs)
+
+
 def main() -> int:
     try:
         import torch
@@ -4484,6 +5027,24 @@ def main() -> int:
         lap("moe train")
         phase_moe_cuda_vs_cpu()
         lap("moe cuda vs cpu")
+        # slice 8: the encoder-decoder and vision-LM families, and jamba
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory_runs = {}
+        memory_runs["seamless generate"] = phase_memory_serve(ENCDEC_ARCH)
+        lap("seamless serve")
+        memory_runs["seamless train"] = phase_memory_train(ENCDEC_ARCH)
+        lap("seamless train")
+        memory_runs["llama-vision generate"] = phase_memory_serve(VLM_ARCH)
+        lap("llama-vision serve")
+        memory_runs["llama-vision train"] = phase_memory_train(
+            VLM_ARCH, VLM_TRAIN_LAYERS)
+        lap("llama-vision train")
+        memory_runs["jamba generate"], memory_runs["jamba engine"] = \
+            phase_jamba()
+        lap("jamba")
+        phase_new_cuda_vs_cpu()
+        lap("new configs cuda vs cpu")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4512,8 +5073,9 @@ def main() -> int:
     iso = {k: sum(t[k] for t in paged_timing) / len(paged_timing)
            for k in ("ms", "int8_ms")}
     n_paged = paged["launches"]
-    log(f"engine {SERVE_ARCH} (16 slots, paged, {ENGINE_TRACE['n_requests']}"
-        f" requests, {st['steps']:.0f} steps): useful tokens/s bf16 "
+    log(f"engine {SERVE_ARCH} ({ENGINE_LAYERS} of 28 layers, 16 slots, "
+        f"paged, {ENGINE_TRACE['n_requests']} requests, {st['steps']:.0f} "
+        f"steps): useful tokens/s bf16 "
         f"{tok_s['bf16'][0]:.1f} and {tok_s['bf16'][1]:.1f}, int8 "
         f"{tok_s['int8'][0]:.1f} and {tok_s['int8'][1]:.1f} (runs in the "
         f"order bf16, int8, int8, bf16), agreement "
@@ -4555,6 +5117,7 @@ def main() -> int:
         f"lm-smoke sweeps " + ", ".join(f"{a} {s:.1f} s"
                                         for a, s in lm_sweeps.items()))
     moe_summary(moe_serve, moe_engine, moe_train)
+    memory_summary(memory_runs)
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
         f" (seconds by part: {took})")
     log(smi)

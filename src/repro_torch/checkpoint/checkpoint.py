@@ -61,8 +61,14 @@ def _from_reference(ref: Any, like: Any) -> Any:
         return type(like)(*(_from_reference(r, l) for r, l in zip(ref, like)))
     dev = tree.leaves(like)[0].device
     if convert.is_decoder_tree(like):
-        # lm_to_torch reads only the config's body_repeats
-        repeats = types.SimpleNamespace(body_repeats=_body_repeats(like))
+        # lm_to_torch reads only the body's repeats and the encoder's
+        enc = like.get("encoder") if isinstance(like, dict) else None
+        decoder = {k: v for k, v in like.items() if k != "encoder"} \
+            if enc is not None else like
+        repeats = types.SimpleNamespace(
+            body_repeats=_body_repeats(decoder),
+            encoder=None if enc is None else types.SimpleNamespace(
+                n_layers=_body_repeats(enc)))
         out = convert.lm_to_torch(ref, repeats, dev)
     else:
         out = convert.to_torch(ref, dev)

@@ -11,7 +11,9 @@ Trees are nested dicts and lists.
   ``body_repeats`` axis (it scans over them); the port holds a list of
   per-layer trees. The same holds for KV caches, gradients and the
   optimizer state: ``lm_opt_state_to_torch`` carries an SGD (momentum) or
-  Adam (mu, nu) state, each a tree shaped like the parameters.
+  Adam (mu, nu) state, each a tree shaped like the parameters. An
+  encoder-decoder's ``encoder`` subtree holds a second stack, whose body
+  slot is stacked on the encoder's ``n_layers`` axis.
 """
 from __future__ import annotations
 
@@ -76,30 +78,33 @@ def lm_to_torch(np_tree: Any, cfg: ModelConfig, device: DeviceLike = None
     e.g. ``jax.device_get(repro.models.transformer.init_params(...))``) ->
     the port's tree of tensors on ``device``. Every block stack (a dict of
     ``head``/``body``/``tail``) has its body slots unstacked into lists of
-    ``cfg.body_repeats`` per-layer trees. Leaves keep their layout."""
+    ``cfg.body_repeats`` per-layer trees (``cfg.encoder.n_layers`` under
+    ``encoder``). Leaves keep their layout."""
     dev = resolve_device(device)
+    enc = getattr(cfg, "encoder", None)
+    enc_repeats = enc.n_layers if enc is not None else cfg.body_repeats
 
-    def walk(t):
+    def walk(t, R):
         if isinstance(t, dict):
             if set(t) == _STACK:
-                return {"head": [walk(x) for x in t["head"]],
-                        "body": [unstack(x) for x in t["body"]],
-                        "tail": [walk(x) for x in t["tail"]]}
-            return {k: walk(v) for k, v in t.items()}
+                return {"head": [walk(x, R) for x in t["head"]],
+                        "body": [unstack(x, R) for x in t["body"]],
+                        "tail": [walk(x, R) for x in t["tail"]]}
+            return {k: walk(v, enc_repeats if k == "encoder" else R)
+                    for k, v in t.items()}
         if isinstance(t, (list, tuple)):
-            return [walk(x) for x in t]
+            return [walk(x, R) for x in t]
         return _leaf_to_torch(t, dev)
 
-    def unstack(slot):
-        R = cfg.body_repeats
+    def unstack(slot, R):
         for a in tree.leaves(slot):
             if np.shape(a)[:1] != (R,):
                 raise ValueError(f"body leaf of shape {np.shape(a)} has no "
                                  f"leading body_repeats={R} axis")
-        return [walk(tree.map(lambda a, i=i: np.asarray(a)[i], slot))
+        return [walk(tree.map(lambda a, i=i: np.asarray(a)[i], slot), R)
                 for i in range(R)]
 
-    return walk(np_tree)
+    return walk(np_tree, cfg.body_repeats)
 
 
 def lm_to_numpy(torch_tree: Any) -> Any:

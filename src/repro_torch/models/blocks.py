@@ -1,5 +1,7 @@
 """LayerSpec interpreter (the port of ``repro.models.blocks``): one block
-is a pre-norm sequence mixer (attention ``mixer="attn"``, sliding-window
+is an optional cross-attention sublayer into a memory (``cross_attn``,
+before the mixer, its own pre-norm ``norm_x`` and a plain residual add),
+a pre-norm sequence mixer (attention ``mixer="attn"``, sliding-window
 ``"swa"`` or the Mamba ``"ssm"``) and, where the spec has one, a
 feed-forward sublayer: the dense SwiGLU (``ff="dense"``) or the
 Mixture-of-Experts (``ff="moe"``, ``models/moe.py``); an ssm block of
@@ -13,7 +15,10 @@ cache (prefill and decode drop the losses), adds no operation for them.
 An ssm block's cache is
 ``{"ssm": {"h", "conv"}}``: the f32 state (B, d_inner, d_state) and the
 last ``d_conv - 1`` inputs (B, d_conv - 1, d_inner), f32 as in the
-reference.
+reference. A cross block's cache adds the projected memory ``cross_k``/
+``cross_v`` (B, memory_len, kv, hd), filled once by
+``transformer.build_cross_cache`` and read, unchanged, by prefill and
+decode.
 
 The JAX package scans the repeating body over stacked parameters; the port
 holds one tree per layer: ``stack["body"][j][i]`` is repeat ``i`` of body
@@ -25,8 +30,7 @@ norm kernel and its shared expert in the SwiGLU kernel, as a dense block's
 do (the reference calls both plainly there; each kernel computes the same
 function, and no plain version runs on the card's kernel path).
 
-Cross-attention blocks and tensor parallelism wait for their slices:
-reaching one raises ``NotImplementedError`` naming it.
+Tensor parallelism waits for its slice.
 """
 from __future__ import annotations
 
@@ -42,12 +46,6 @@ from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
-
-
-def _supported(spec: LayerSpec) -> None:
-    if spec.cross_attn:
-        raise NotImplementedError("cross-attention blocks come with the "
-                                  "encoder/VLM slice")
 
 
 def _sum_aux(acc: Dict[str, Tensor], new: Dict[str, Tensor]
@@ -70,7 +68,6 @@ def _with_zeros(aux: Dict[str, Tensor], device) -> Dict[str, Tensor]:
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                dtype: torch.dtype) -> Params:
-    _supported(spec)
     dev = gen.device
     p: Params = {}
     if spec.mixer in ("attn", "swa"):
@@ -79,6 +76,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     elif spec.mixer == "ssm":
         p["norm1"] = L.norm_init(cfg, cfg.d_model, dev)
         p["mixer"] = SSM.ssm_init(gen, cfg, dtype)
+    if spec.cross_attn:
+        p["norm_x"] = L.norm_init(cfg, cfg.d_model, dev)
+        p["cross"] = L.cross_attention_init(gen, cfg, dtype)
     if spec.ff == "dense":
         p["norm2"] = L.norm_init(cfg, cfg.d_model, dev)
         p["ff"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
@@ -91,13 +91,15 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                 dtype: torch.dtype, layout: str = "seq", page_size: int = 64,
                 total_pages: Optional[int] = None,
-                cache_dtype: Optional[str] = None, device=None) -> Params:
+                cache_dtype: Optional[str] = None, device=None,
+                memory_len: int = 0) -> Params:
     """Decode-time cache of one block: ``layout`` "seq" (B, S, kv, hd),
     "head" (B, kv, S, hd), the decode kernel's layout, or "paged" (page
     pool + block tables; swa layers keep their head-major ring).
     ``cache_dtype="int8"`` quantizes the paged pool per slot (see
-    ``layers.init_kv_cache``)."""
-    _supported(spec)
+    ``layers.init_kv_cache``). A cross block also holds zeroed
+    ``cross_k``/``cross_v`` (B, memory_len, kv, hd) in ``dtype``, whatever
+    the layout."""
     c: Params = {}
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
@@ -107,12 +109,17 @@ def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                                     cache_dtype=cache_dtype, device=device)
     elif spec.mixer == "ssm":
         c["ssm"] = SSM.init_ssm_cache(cfg, batch, device=device)
+    if spec.cross_attn:
+        shape = (batch, memory_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return c
 
 
 def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
                 *, cache: Optional[Params] = None,
                 positions: Optional[Tensor] = None,
+                memory: Optional[Tensor] = None,
                 pos: Union[int, Tensor, None] = None, decode: bool = False,
                 causal: bool = True, use_kernels: bool = False,
                 offsets: Optional[Tensor] = None
@@ -120,11 +127,19 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
     """Apply one block. With no cache it is the training forward over
     ``positions``; against a cache, ``decode=True`` is one token at ``pos``
     and otherwise the fused prefill over ``positions`` fills the cache.
+    A cross block attends ``memory`` (B, S, D) with no cache, else the
+    cache's ``cross_k``/``cross_v``, which it leaves as they are.
     Returns (x, cache, aux), the cache updated in place (None without
     one); aux holds an MoE block's router losses with no cache, else
     nothing (prefill and decode drop them)."""
-    _supported(spec)
     aux: Dict[str, Tensor] = {}
+    if spec.cross_attn:
+        h = L.norm_apply(cfg, params["norm_x"], x, use_kernels=use_kernels)
+        if cache is None:
+            k, v = L.cross_kv(params["cross"], cfg, memory)
+        else:
+            k, v = cache["cross_k"], cache["cross_v"]
+        x = x + L.cross_attention_apply(params["cross"], cfg, h, k, v)
     y_mix = None
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
@@ -203,14 +218,17 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig,
 def stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype, layout: str = "seq", page_size: int = 64,
                 total_pages: Optional[int] = None,
-                cache_dtype: Optional[str] = None, device=None) -> Params:
-    """Caches of every layer. Under ``layout="paged"`` every paged layer
-    holds its own page pool but all share ONE block table tensor ``pt``
-    (the reference keeps one logical table and broadcasts it to every
-    layer), so writing the table once updates every layer."""
+                cache_dtype: Optional[str] = None, device=None,
+                memory_len: int = 0) -> Params:
+    """Caches of every layer (a cross block's ``memory_len`` deep). Under
+    ``layout="paged"`` every paged layer holds its own page pool but all
+    share ONE block table tensor ``pt`` (the reference keeps one logical
+    table and broadcasts it to every layer), so writing the table once
+    updates every layer."""
     def one(spec):
         return block_cache(cfg, spec, batch, max_len, dtype, layout,
-                           page_size, total_pages, cache_dtype, device)
+                           page_size, total_pages, cache_dtype, device,
+                           memory_len)
 
     tree = {
         "head": [one(s) for s in cfg.head_pattern],
@@ -239,6 +257,7 @@ def each_layer(tree: Params, cfg: ModelConfig
 def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
                 cache: Optional[Params] = None,
                 positions: Optional[Tensor] = None,
+                memory: Optional[Tensor] = None,
                 pos: Union[int, Tensor, None] = None, decode: bool = False,
                 causal: bool = True, use_kernels: bool = False,
                 remat: bool = False,
@@ -250,21 +269,23 @@ def stack_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
     layer order (zero without MoE blocks), against a cache an empty dict
     (prefill and decode drop the losses).
 
+    ``memory`` (B, S, D) is what the cross blocks attend with no cache.
     ``remat=True`` (no cache) recomputes each block in the backward
     (``torch.utils.checkpoint``, non-reentrant), the counterpart of the
     reference's ``jax.checkpoint(nothing_saveable)``: only each block's
-    input stays alive between the passes; a checkpointed block returns
-    its output and its aux losses."""
+    inputs stay alive between the passes (the memory is one of them, so
+    its gradient reaches the encoder); a checkpointed block returns its
+    output and its aux losses."""
     if cache is None:
         aux: Dict[str, Tensor] = {}
         for spec, p in each_layer(params, cfg):
-            def fn(xb, p=p, spec=spec):
+            def fn(xb, mem, p=p, spec=spec):
                 xo, _, a = block_apply(p, cfg, spec, xb, positions=positions,
-                                       causal=causal,
+                                       memory=mem, causal=causal,
                                        use_kernels=use_kernels)
                 return xo, a
-            x, a = (checkpoint(fn, x, use_reentrant=False) if remat
-                    else fn(x))
+            x, a = (checkpoint(fn, x, memory, use_reentrant=False) if remat
+                    else fn(x, memory))
             aux = _sum_aux(aux, a)
         return x, None, _with_zeros(aux, x.device)
     for (spec, p), (_, c) in zip(each_layer(params, cfg),

@@ -1,6 +1,8 @@
-"""Decoder layers (the port of ``repro.models.layers``): RMSNorm,
-half-split RoPE, GQA self-attention over a full sequence (training) and
-over a KV cache (fused prefill and one-token decode), and the SwiGLU MLP.
+"""Decoder layers (the port of ``repro.models.layers``): RMSNorm and
+LayerNorm, half-split RoPE, GQA self-attention over a full sequence
+(training, the encoder) and over a KV cache (fused prefill and one-token
+decode), cross-attention into an encoder or vision memory, and the SwiGLU
+MLP.
 
 Layers are functions over explicit parameter trees, as in the JAX package:
 ``params = <layer>_init(gen, ...)``, ``y = <layer>_apply(params, x, ...)``.
@@ -24,8 +26,13 @@ int8 pool the ``ks``/``vs`` per-slot scales) is the continuous-batching
 engine's layout; decode writes into it in place and attends through the
 paged decode kernel (kernels) or a gather of every row's pages (plain).
 
-The cross-attention and ``attention_full``'s ``segment_mask`` wait for the
-encoder slice.
+Cross-attention projects the memory's K/V once (``cross_kv``; a decode
+cache holds them) and attends with the plain ``_sdpa`` and no mask over
+the memory, as the reference does: no Pallas kernel computes it there.
+The encoder's non-causal self-attention, and any ``segment_mask``, take
+the plain path too (the reference's kernel condition is causal and
+unmasked). LayerNorm has no kernel: it is the plain two-pass norm with
+kernels on too.
 """
 from __future__ import annotations
 
@@ -67,6 +74,26 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
     return (scale * w).to(dtype)
 
 
+# On the card, cuBLAS splits the reduction of a bf16 product over a long K
+# (8192: falcon-mamba's d_inner, seamless's d_ff) across blocks when it has
+# few rows (a short prompt, a decode step), and a row's rounding then
+# depends on how many rows came with it, so a left-padded batch row parts
+# from its solo run. With 512 rows or more it took one order (chip_smoke.py's
+# phase 16 probe and scripts/memory_invariance.py count both).
+INVARIANT_ROWS = 512
+
+
+def rows_matmul(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` over (..., K) rows, computed on at least INVARIANT_ROWS
+    rows (zero rows appended, their products dropped), so that a row's
+    result does not depend on the rows computed beside it."""
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    if n < INVARIANT_ROWS:
+        rows = F.pad(rows, (0, 0, 0, INVARIANT_ROWS - n))
+    return (rows @ w)[:n].reshape(*x.shape[:-1], w.shape[1])
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -82,21 +109,36 @@ def rmsnorm_apply(params: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
     return (xf * torch.rsqrt(var + eps) * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(d: int, device: torch.device) -> Params:
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def layernorm_apply(params: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
+
+
 def norm_init(cfg: ModelConfig, d: int, device: torch.device) -> Params:
-    if cfg.norm.kind != "rmsnorm":
-        raise NotImplementedError(f"norm kind {cfg.norm.kind!r}: the port's "
-                                  f"decoders use rmsnorm")
+    if cfg.norm.kind == "layernorm":
+        return layernorm_init(d, device)
     return rmsnorm_init(d, device)
 
 
 def norm_apply(cfg: ModelConfig, params: Params, x: Tensor, *,
                use_kernels: bool = False) -> Tensor:
-    """RMSNorm over the model width. With kernels it runs in the fused norm
-    kernel with no residual: one block reduces one row in a fixed order, so
-    a row's result does not depend on how many rows the batch holds
-    (torch's mean over d_model splits its reduction by the number of rows,
-    and a last-bit difference there flips a bf16 rounding now and then),
-    which is what lets a ContinuousEngine row equal its solo run."""
+    """The config's norm over the model width. With kernels an RMSNorm runs
+    in the fused norm kernel with no residual: one block reduces one row in
+    a fixed order, so a row's result does not depend on how many rows the
+    batch holds (torch's mean over d_model splits its reduction by the
+    number of rows, and a last-bit difference there flips a bf16 rounding
+    now and then), which is what lets a ContinuousEngine row equal its solo
+    run. LayerNorm is always the plain two-pass norm."""
+    if cfg.norm.kind == "layernorm":
+        return layernorm_apply(params, x, cfg.norm.eps)
     if use_kernels:
         return kops.rmsnorm_residual(x, None, params["scale"],
                                      eps=cfg.norm.eps)[0]
@@ -107,8 +149,9 @@ def norm_residual_apply(cfg: ModelConfig, params: Params, x: Tensor,
                         r: Tensor, *, use_kernels: bool = False
                         ) -> Tuple[Tensor, Tensor]:
     """``(norm(x + r), x + r)``: the next sublayer's input and the new
-    residual stream; one fused kernel pass with kernels on."""
-    if use_kernels:
+    residual stream; one fused kernel pass with kernels on (RMSNorm only:
+    LayerNorm adds, then norms)."""
+    if use_kernels and cfg.norm.kind == "rmsnorm":
         return kops.rmsnorm_residual(x, r, params["scale"], eps=cfg.norm.eps)
     s = x + r
     return norm_apply(cfg, params, s), s
@@ -261,21 +304,26 @@ def _local_attention(q: Tensor, k: Tensor, v: Tensor, window: int,
 
 def attention_full(params: Params, cfg: ModelConfig, x: Tensor,
                    positions: Tensor, *, window: Optional[int] = None,
-                   causal: bool = True, use_kernels: bool = False) -> Tensor:
-    """Self-attention over a full sequence (training). x: (B, T, D);
-    positions: (B, T). With kernels (causal) the flash kernel rotates q
-    and k on its loads; the plain path applies RoPE, then ``_sdpa`` with a
-    causal or window mask, or the block-local attention for a window
-    shorter than half the sequence."""
+                   causal: bool = True,
+                   segment_mask: Optional[Tensor] = None,
+                   use_kernels: bool = False) -> Tensor:
+    """Self-attention over a full sequence (training, the encoder). x: (B,
+    T, D); positions: (B, T); ``segment_mask`` (T, T) or (B, T, T), True =
+    attend, is and-ed into the causal (or all-true) mask. With kernels, a
+    causal call with no segment mask runs in the flash kernel, which
+    rotates q and k on its loads; otherwise the plain path applies RoPE,
+    then ``_sdpa`` with the mask, or the block-local attention for a
+    window shorter than half the sequence."""
     B, T, _ = x.shape
-    if use_kernels and causal:
+    if use_kernels and causal and segment_mask is None:
         q, k, v = _project_qkv(params, cfg, x, positions, rope=False)
         out = kops.flash_attention_rope(q, k, v, positions,
                                         theta=cfg.rope_theta, causal=True,
                                         window=window)
         return out.reshape(B, T, -1) @ params["wo"].to(x.dtype)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    if window is not None and causal and T > 2 * window:
+    if window is not None and causal and T > 2 * window \
+            and segment_mask is None:
         out = _local_attention(q, k, v, window, x.dtype)
     else:
         if causal:
@@ -283,7 +331,9 @@ def attention_full(params: Params, cfg: ModelConfig, x: Tensor,
                  if window is not None else causal_mask(T, T, device=x.device))
         else:
             m = torch.ones((T, T), dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, m[None])
+        if segment_mask is not None:
+            m = m & segment_mask
+        out = _sdpa(q, k, v, m if m.dim() == 3 else m[None])
     return out.reshape(B, T, -1) @ params["wo"].to(x.dtype)
 
 
@@ -528,6 +578,41 @@ def attention_prefill(params: Params, cfg: ModelConfig, x: Tensor,
     return y, cache
 
 
+# -- cross-attention ------------------------------------------------------------
+
+
+def cross_attention_init(gen: torch.Generator, cfg: ModelConfig,
+                         dtype: torch.dtype) -> Params:
+    return attention_init(gen, cfg, dtype)
+
+
+def cross_kv(params: Params, cfg: ModelConfig, memory: Tensor
+             ) -> Tuple[Tensor, Tensor]:
+    """Project the (encoder or vision) memory (B, S, D) once, in its dtype:
+    K and V (B, S, kv, hd), which a decode cache keeps."""
+    B, S, _ = memory.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    dt = memory.dtype
+    k = (memory @ params["wk"].to(dt)).reshape(B, S, kv, hd)
+    v = (memory @ params["wv"].to(dt)).reshape(B, S, kv, hd)
+    return k, v
+
+
+def cross_attention_apply(params: Params, cfg: ModelConfig, x: Tensor,
+                          k: Tensor, v: Tensor) -> Tensor:
+    """x: (B, T, D) queries; k, v: the projected memory (B, S, kv, hd).
+    No RoPE and no mask; under ``qk_norm`` only the query is normed, as in
+    the reference."""
+    B, T, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, T, h, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, cfg.norm.eps)
+    out = _sdpa(q, k.to(dt), v.to(dt), None)
+    return out.reshape(B, T, h * hd) @ params["wo"].to(dt)
+
+
 # ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
@@ -543,10 +628,13 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int,
 
 
 def mlp_apply(params: Params, x: Tensor, use_kernels: bool = False) -> Tensor:
+    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``; with kernels
+    the gated product runs in the SwiGLU kernel. The down projection
+    reduces over d_ff (up to 21504) and runs on at least INVARIANT_ROWS
+    rows (:func:`rows_matmul`)."""
     dt = x.dtype
     if use_kernels:
         h = kops.swiglu(x, params["w_gate"].to(dt), params["w_up"].to(dt))
-        return h @ params["w_down"].to(dt)
-    g = F.silu(x @ params["w_gate"].to(dt))
-    u = x @ params["w_up"].to(dt)
-    return (g * u) @ params["w_down"].to(dt)
+    else:
+        h = F.silu(x @ params["w_gate"].to(dt)) * (x @ params["w_up"].to(dt))
+    return rows_matmul(h, params["w_down"].to(dt))

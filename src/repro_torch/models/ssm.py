@@ -31,18 +31,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, rows_matmul
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 
 DEFAULT_CHUNK = 256
-# On the card, cuBLAS splits the reduction of a bf16 product over d_inner
-# (8192 at full width) across blocks when it has few rows (a short prompt,
-# a decode step), and a row's rounding then depends on how many rows came
-# with it, so a left-padded batch row parts from its solo run. With 512 rows
-# or more it took one order (chip_smoke.py's phase 16 probe counts both).
-INVARIANT_ROWS = 512
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig,
@@ -68,17 +62,6 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _rows_matmul(x: Tensor, w: Tensor) -> Tensor:
-    """``x @ w`` over (..., K) rows, computed on at least INVARIANT_ROWS
-    rows (zero rows appended, their products dropped), so that a row's
-    result does not depend on the rows computed beside it."""
-    rows = x.reshape(-1, x.shape[-1])
-    n = rows.shape[0]
-    if n < INVARIANT_ROWS:
-        rows = F.pad(rows, (0, 0, 0, INVARIANT_ROWS - n))
-    return (rows @ w)[:n].reshape(*x.shape[:-1], w.shape[1])
-
-
 def _split_in(params: Params, cfg: ModelConfig, x: Tensor
               ) -> Tuple[Tensor, Tensor]:
     di = cfg.ssm.d_inner(cfg.d_model)
@@ -92,7 +75,7 @@ def _bcdt(params: Params, cfg: ModelConfig, xc: Tensor
     all f32."""
     s = cfg.ssm
     dtr = s.resolved_dt_rank(cfg.d_model)
-    proj = _rows_matmul(xc, params["x_proj"].to(xc.dtype))
+    proj = rows_matmul(xc, params["x_proj"].to(xc.dtype))
     dt_in = proj[..., :dtr]
     Bm = proj[..., dtr:dtr + s.d_state]
     Cm = proj[..., dtr + s.d_state:]
@@ -181,7 +164,7 @@ def ssm_forward(params: Params, cfg: ModelConfig, x: Tensor,
     y = torch.cat(ys, dim=1)[:, :S]
     y = y + params["D"] * xc.float()
     y = y.to(dt_) * F.silu(z)
-    out = _rows_matmul(y, params["out_proj"].to(dt_))
+    out = rows_matmul(y, params["out_proj"].to(dt_))
     if not return_state:
         return out
     # decode handoff: conv state = the last d_conv-1 (masked) inputs, padded
@@ -231,5 +214,5 @@ def ssm_decode(params: Params, cfg: ModelConfig, x: Tensor,
     y = torch.einsum("bds,bs->bd", h, Cmat[:, 0])
     y = y + params["D"] * xc[:, 0].float()
     y = y[:, None].to(dt_) * F.silu(z)
-    out = _rows_matmul(y, params["out_proj"].to(dt_))
+    out = rows_matmul(y, params["out_proj"].to(dt_))
     return out, {"h": h, "conv": new_conv}

@@ -1,5 +1,6 @@
-"""Top-level decoder (the port of ``repro.models.transformer``): token
-embedding, the block stack and the LM head.
+"""Top-level model (the port of ``repro.models.transformer``): token
+embedding, the block stack and the LM head, and for the encoder-decoder
+and vision-LM families the memory the cross blocks attend.
 
 - Training: ``forward`` (logits), ``hidden_states`` and ``lm_loss`` (next-
   token cross-entropy, dense or vocab-chunked, plus the MoE router losses),
@@ -9,18 +10,24 @@ embedding, the block stack and the LM head.
   through the kernels by default (``use_kernels=True``, head-major
   caches); ``use_kernels=False`` is the reference's plain path over
   seq-major caches.
-
-Encoder and vision memories come with their slice.
+- Memories: an encoder-decoder config (``cfg.encoder``) runs ``encode``,
+  a non-causal dense stack over stub frame embeddings (B, F, d_model);
+  a vision config (``cfg.vision``) takes the stub projected patch
+  embeddings (B, n_image_tokens, d_model) as they are (``get_memory``).
+  Training passes the memory to every cross block; serving projects it
+  once into the cache (``init_cache(memory_len=)``,
+  ``build_cross_cache``) before the prefill.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -33,15 +40,26 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return L.torch_dtype(cfg.dtype)
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config of the (non-causal, dense) encoder stack: the encoder's
+    widths and depth with the decoder's norm, RoPE theta and dtype."""
+    e = cfg.encoder
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-encoder", d_model=e.d_model,
+        n_heads=e.n_heads, n_kv_heads=e.n_kv_heads,
+        head_dim=e.d_model // e.n_heads, d_ff=e.d_ff, head_pattern=(),
+        body_pattern=(LayerSpec(mixer="attn", ff="dense"),),
+        body_repeats=e.n_layers, tail_pattern=(), causal=False, moe=None,
+        ssm=None, encoder=None, vision=None)
+
+
 def init_params(seed: int, cfg: ModelConfig, device: DeviceLike = None
                 ) -> Params:
     """Random weights from ``seed``, drawn on ``device`` (the card unless
-    told otherwise) in the config's dtype; norm scales are f32. A seed gives
-    different weights on the CPU and on the card: to compare devices, draw
-    once and move the tree."""
-    if cfg.encoder is not None or cfg.vision is not None:
-        raise NotImplementedError("encoder and vision memories come with the "
-                                  "encoder/VLM slice")
+    told otherwise) in the config's dtype; norm scales are f32. An
+    encoder-decoder config also gets ``encoder`` (its stack and final
+    norm). A seed gives different weights on the CPU and on the card: to
+    compare devices, draw once and move the tree."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = compute_dtype(cfg)
@@ -53,10 +71,52 @@ def init_params(seed: int, cfg: ModelConfig, device: DeviceLike = None
     }
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, (Vp, d), scale=0.02, dtype=dtype)
+    if cfg.encoder is not None:
+        ecfg = encoder_config(cfg)
+        p["encoder"] = {"stack": B.stack_init(gen, ecfg, dtype),
+                        "final_norm": L.norm_init(ecfg, ecfg.d_model, dev)}
     return p
 
 
+def encode(params: Params, cfg: ModelConfig, frames: Tensor,
+           use_kernels: bool = False, remat: bool = False) -> Tensor:
+    """The encoder over stub frame embeddings (B, F, d_model): RoPE
+    positions 0..F-1, attention all to all (nothing masked), then the
+    encoder's final norm."""
+    ecfg = encoder_config(cfg)
+    Bsz, Fr, _ = frames.shape
+    positions = torch.arange(Fr, device=frames.device)[None].expand(Bsz, Fr)
+    x, _, _ = B.stack_apply(params["encoder"]["stack"], ecfg, frames,
+                            positions=positions, causal=False,
+                            use_kernels=use_kernels, remat=remat)
+    return L.norm_apply(ecfg, params["encoder"]["final_norm"], x,
+                        use_kernels=use_kernels)
+
+
+def get_memory(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
+               use_kernels: bool = False, remat: bool = False
+               ) -> Optional[Tensor]:
+    """The cross-attention memory of this family: the encoder's output
+    over ``batch["frames"]``, else ``batch["image_embeds"]``, else None."""
+    if cfg.encoder is not None:
+        return encode(params, cfg, batch["frames"], use_kernels, remat)
+    if cfg.vision is not None:
+        return batch["image_embeds"]
+    return None
+
+
+def memory_len(cfg: ModelConfig, seq_len: int) -> int:
+    """The memory's length for a ``seq_len``-token input: seq_len //
+    frame_ratio frames, or the vision stub's image tokens, or 0."""
+    if cfg.encoder is not None:
+        return seq_len // cfg.encoder.frame_ratio
+    if cfg.vision is not None:
+        return cfg.vision.n_image_tokens
+    return 0
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               memory_len: int = 0,
                dtype: Optional[torch.dtype] = None, layout: str = "head",
                page_size: int = 64, total_pages: Optional[int] = None,
                cache_dtype: Optional[str] = None,
@@ -69,10 +129,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     block table shared by every layer, for :class:`repro_torch.serving.
     ContinuousEngine`. ``cache_dtype="int8"`` stores the paged pool as
     per-slot int8 codes with f32 scales (``ks``/``vs``). ``dtype``
-    defaults to the config's compute dtype."""
+    defaults to the config's compute dtype. Cross blocks get zeroed
+    ``cross_k``/``cross_v`` of ``memory_len`` slots, for
+    :func:`build_cross_cache` to fill."""
     dev = resolve_device(device)
     return B.stack_cache(cfg, batch, max_len, dtype or compute_dtype(cfg),
-                         layout, page_size, total_pages, cache_dtype, dev)
+                         layout, page_size, total_pages, cache_dtype, dev,
+                         memory_len)
+
+
+def build_cross_cache(params: Params, cfg: ModelConfig, memory: Tensor,
+                      cache: Params) -> Params:
+    """Project ``memory`` (B, S, D) into every cross block's ``cross_k``/
+    ``cross_v`` (in place, cast to the cache's dtype); returns the cache.
+    Prefill and decode then read them."""
+    for (spec, p), (_, c) in zip(B.each_layer(params["stack"], cfg),
+                                 B.each_layer(cache, cfg)):
+        if spec.cross_attn:
+            k, v = L.cross_kv(p["cross"], cfg, memory)
+            c["cross_k"].copy_(k)
+            c["cross_v"].copy_(v)
+    return cache
 
 
 def _logits(params: Params, cfg: ModelConfig, x: Tensor,
@@ -107,15 +184,17 @@ def prefill_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     tokens: (B, P) -> (logits (B, 1, padded_vocab), cache). With
     ``offsets`` (left-padded ragged prompts) each row's RoPE positions
     start at its first real token and the padding is masked out of the
-    attention, so the cache holds what each row would produce unpadded."""
+    attention, so the cache holds what each row would produce unpadded.
+    Cross blocks read the memory from the cache: fill it first
+    (:func:`build_cross_cache`)."""
     Bsz, P = tokens.shape
     x = F.embedding(tokens, params["embed"]).to(compute_dtype(cfg))
     positions = torch.arange(P, device=x.device)[None].expand(Bsz, P)
     if offsets is not None:
         positions = positions - offsets[:, None]
     if not cfg.causal:
-        raise NotImplementedError("non-causal stacks come with the encoder "
-                                  "slice")
+        raise ValueError("prefill runs a causal decoder; a non-causal stack "
+                         "(the encoder) runs with no cache")
     x, cache, _ = B.stack_apply(params["stack"], cfg, x, cache=cache,
                                 positions=positions, decode=False,
                                 use_kernels=use_kernels, offsets=offsets)
@@ -129,9 +208,6 @@ def prefill_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
 
 def _embed_positions(params: Params, cfg: ModelConfig, tokens: Tensor
                      ) -> Tuple[Tensor, Tensor]:
-    if cfg.encoder is not None or cfg.vision is not None:
-        raise NotImplementedError("encoder and vision memories come with the "
-                                  "encoder/VLM slice")
     Bsz, S = tokens.shape
     x = F.embedding(tokens, params["embed"]).to(compute_dtype(cfg))
     positions = torch.arange(S, device=x.device)[None].expand(Bsz, S)
@@ -139,25 +215,28 @@ def _embed_positions(params: Params, cfg: ModelConfig, tokens: Tensor
 
 
 def hidden_states(params: Params, cfg: ModelConfig, tokens: Tensor, *,
+                  memory: Optional[Tensor] = None,
                   use_kernels: bool = False, remat: bool = False
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The stack up to (but excluding) the LM head: the final norm's
     output (B, S, d) and the auxiliary losses summed over the blocks
-    (``moe_aux``, ``moe_z``; zero without MoE blocks)."""
+    (``moe_aux``, ``moe_z``; zero without MoE blocks). Cross blocks
+    attend ``memory``."""
     x, positions = _embed_positions(params, cfg, tokens)
     x, _, aux = B.stack_apply(params["stack"], cfg, x, positions=positions,
-                              causal=cfg.causal, use_kernels=use_kernels,
-                              remat=remat)
+                              memory=memory, causal=cfg.causal,
+                              use_kernels=use_kernels, remat=remat)
     x = L.norm_apply(cfg, params["final_norm"], x, use_kernels=use_kernels)
     return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: Tensor, *,
-            use_kernels: bool = False, remat: bool = False
-            ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """tokens: (B, S) ids -> (logits (B, S, padded_vocab), aux losses)."""
-    x, aux = hidden_states(params, cfg, tokens, use_kernels=use_kernels,
-                           remat=remat)
+            memory: Optional[Tensor] = None, use_kernels: bool = False,
+            remat: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """tokens: (B, S) ids -> (logits (B, S, padded_vocab), aux losses);
+    cross blocks attend ``memory`` (B, S_mem, d_model)."""
+    x, aux = hidden_states(params, cfg, tokens, memory=memory,
+                           use_kernels=use_kernels, remat=remat)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     return x @ head.to(x.dtype).T, aux
 
@@ -221,17 +300,20 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S), plus, for an
     MoE config, ``router_aux_weight * moe_aux + router_z_weight * moe_z``.
     ``ce_chunk > 0`` (dividing the padded vocab) takes the vocab-chunked
-    streaming CE. Returns (loss, {"ce", "moe_aux", "moe_z"})."""
+    streaming CE. The memory comes from the batch (:func:`get_memory`:
+    ``frames`` through the encoder, or ``image_embeds``). Returns (loss,
+    {"ce", "moe_aux", "moe_z"})."""
     tokens = batch["tokens"]
+    memory = get_memory(params, cfg, batch, use_kernels, remat)
     targets = tokens[:, 1:]
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     if ce_chunk and cfg.padded_vocab % ce_chunk == 0:
-        x, aux = hidden_states(params, cfg, tokens, use_kernels=use_kernels,
-                               remat=remat)
+        x, aux = hidden_states(params, cfg, tokens, memory=memory,
+                               use_kernels=use_kernels, remat=remat)
         ce = _chunked_ce(cfg, x[:, :-1], head, targets, ce_chunk)
     else:
-        logits, aux = forward(params, cfg, tokens, use_kernels=use_kernels,
-                              remat=remat)
+        logits, aux = forward(params, cfg, tokens, memory=memory,
+                              use_kernels=use_kernels, remat=remat)
         ce = _dense_ce(cfg, logits[:, :-1], targets)
     m = cfg.moe
     total = ce

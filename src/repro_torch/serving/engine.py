@@ -9,7 +9,10 @@ then a KV-cache decode loop, and the continuous-batching engine.
   runs in the flash-decode kernel with the query's RoPE fused in;
 - ragged prompts are LEFT-padded with ``prompt_lens``: the padding is
   masked out of every attention and RoPE positions start at each row's
-  first real token, so each row continues as it would unpadded.
+  first real token, so each row continues as it would unpadded;
+- an encoder-decoder or vision-LM model is given its ``memory`` (the
+  encoder's output, or the image embeddings): it is projected once into
+  the cross blocks' cache before the prefill.
 
 The decode loop is a Python loop that never waits on the card: tokens stay
 on the device, and ``prompt_lens`` is checked on the host before it is
@@ -132,7 +135,8 @@ def _offsets(prompt_lens: Union[Sequence[int], np.ndarray, Tensor], B: int,
 
 def generate(params: Params, cfg: ModelConfig,
              prompts: Union[Tensor, np.ndarray], *, max_new_tokens: int = 32,
-             max_len: Optional[int] = None, use_kernels: bool = True,
+             max_len: Optional[int] = None, memory: Optional[Tensor] = None,
+             use_kernels: bool = True,
              temperature: float = 0.0, top_k: int = 0,
              generator: Optional[torch.Generator] = None,
              prompt_lens: Optional[Union[Sequence[int], Tensor]] = None,
@@ -149,7 +153,11 @@ def generate(params: Params, cfg: ModelConfig,
     and must cover the prompt and every new token, or this raises.
     ``max_new_tokens == 0`` returns the prompts unchanged.
     ``fused_prefill=False`` fills the cache token by token
-    (:func:`prefill`); ragged prompts need the fused prefill."""
+    (:func:`prefill`); ragged prompts need the fused prefill. ``memory``
+    (B, S, d_model) is what the cross blocks attend: the cache gets
+    ``S`` cross slots, filled by
+    :func:`repro_torch.models.transformer.build_cross_cache`, before the
+    prefill; it masks nothing."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, device=dev)
     B, P = prompts.shape
@@ -169,7 +177,10 @@ def generate(params: Params, cfg: ModelConfig,
     if max_new_tokens == 0:
         return prompts
     cache = T.init_cache(cfg, B, total, layout="head" if use_kernels
-                         else "seq", device=dev)
+                         else "seq", device=dev,
+                         memory_len=0 if memory is None else memory.shape[1])
+    if memory is not None:
+        cache = T.build_cross_cache(params, cfg, memory, cache)
     if fused_prefill:
         last, cache = prefill_fused(params, cfg, prompts, cache,
                                     offsets=offsets, use_kernels=use_kernels)

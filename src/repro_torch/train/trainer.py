@@ -324,6 +324,9 @@ def make_lm_train_step(cfg: ModelConfig, lb: LargeBatchConfig,
                        optimizer: str = "sgd") -> Callable:
     """(params, opt_state, batch, step, generator=None) -> (params,
     opt_state, metrics): one step of the paper's recipe on an LM.
+    ``batch`` holds ``tokens`` (B, T) and, for an encoder-decoder or
+    vision-LM config, its memory's input (``frames`` or ``image_embeds``,
+    which ``transformer.lm_loss`` reads).
 
     ``use_kernels=True`` runs the attention, norms and SwiGLU through the
     CUDA kernels and their backward kernels (autograd Functions);

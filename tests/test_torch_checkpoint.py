@@ -1,9 +1,12 @@
 """The port's run-state checkpoints held to the JAX package's
 (``repro.checkpoint``): the same npz entry names, and vision params,
 momentum and BN state (F1 and a reduced ResNet) and reduced-LM params
-with SGD and Adam states (qwen3-1.7b, falcon-mamba-7b, and the MoE
-models qwen2-moe-a2.7b and kimi-k2-1t-a32b, whose stacked experts are
-(R, E, d, f) and whose shared expert is a nested tree) written by either
+with SGD and Adam states (qwen3-1.7b, falcon-mamba-7b, the MoE models
+qwen2-moe-a2.7b and kimi-k2-1t-a32b, whose stacked experts are (R, E, d,
+f) and whose shared expert is a nested tree, the hybrid jamba-v0.1-52b,
+and the encoder-decoder seamless-m4t-large-v2, whose ``encoder`` holds a
+second stack, here deeper than the decoder's, and whose blocks hold the
+``norm_x``/``cross`` leaves) written by either
 package restore in the other bit for bit; the port reads the JAX package's
 sharded files (one process, and pieces of two processes); the meta and the
 ``latest`` pointer; a missing checkpoint, ``sharded=True`` and an unknown
@@ -42,7 +45,7 @@ VISION = {
                                   ghost_batch_size=16),
 }
 ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "qwen2-moe-a2.7b",
-         "kimi-k2-1t-a32b")
+         "kimi-k2-1t-a32b", "jamba-v0.1-52b", "seamless-m4t-large-v2")
 
 
 def _np(t):
@@ -139,6 +142,10 @@ def test_vision_port_checkpoint_restores_in_reference(tmp_path, name):
 def _lm_cfgs(arch):
     j = dataclasses.replace(jget_config(arch).reduced(), dtype="float32")
     t = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    if t.encoder is not None:
+        # an encoder deeper than the decoder: each stack keeps its own depth
+        j, t = (dataclasses.replace(c, encoder=dataclasses.replace(
+            c.encoder, n_layers=c.body_repeats + 1)) for c in (j, t))
     return j, t
 
 
