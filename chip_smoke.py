@@ -264,11 +264,50 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    memory input: jamba's prefill routing equal layer by layer first,
    prefill logits within TOL, greedy tokens of ragged prompts equal (past
    gemma3's window), one train step's loss within LOSS_TOL and parameters
-   within TOL.
+   within TOL;
+31. the parallel layer (slice 9), its ranks processes spawned with
+   ``torch.multiprocessing`` that all compute on the one card (device 0)
+   and talk over gloo through a ``file://`` store (NCCL refuses two ranks
+   on a GPU): data-parallel ResNet44 at published width over 2 ranks,
+   global B=4096 (2048 a rank, ghosts of 128, LB+LR+GBN+RA), 1 warm and
+   MESH_DP_STEPS timed steps: exactly 43 + 43 GBN launches a step on each
+   rank, the ranks' parameters bit-identical after every step (and
+   ``dp_gbn_forward`` through B1: both ranks' per-ghost statistics
+   gathered rank-major, each rank's own against ``gbn_ref``), against
+   the single-process card step from the same parameters on the same
+   global batch the first three losses within LOSS_TOL and the parameters
+   after three steps within TOL, and the running statistics after steps 1
+   and 2 the mean of the single-process states over each rank's shard;
+   step ms, the all-reduce's ms and bytes a step, peak memory a rank, a
+   profiled step a rank;
+32. qwen3-1.7b at published widths cut to MESH_LM_LAYERS = 8 layers over
+   4 ranks as (2 data, 2 model) with ``tp=True, fsdp=True``, bf16, SGD,
+   B=8 x 512 globally, 1 warm and MESH_LM_STEPS timed steps: exactly
+   17/17 norm, 8/8 SwiGLU and 8/8 RoPE flash attention launches a step on
+   every rank (a rank's TP slice, 8 of 16 q heads, 4 of 8 kv heads, d_ff
+   3072, through the same kernels), the loss falling, the leaves kept
+   whole over "model" bit-identical across each model group; step ms,
+   collective ms and bytes (the FSDP gathers move each large leaf whole),
+   peak memory beside ``state_bytes_per_device``;
+33. qwen2-moe-a2.7b at published widths cut to MESH_EP_LAYERS = 2 layers
+   over the same mesh, 30 of 60 experts a rank (and FSDP over "data", so
+   that four ranks' states fit the card), B=4 x 512 globally, 1 warm and
+   MESH_EP_STEPS timed steps: exact launches, the loss
+   falling, the first MoE layer's dropped assignments equal to the
+   single-process card forward's (a later layer's share within
+   DROP_TOL); step ms and expert bytes a rank;
+34. reduced f32, card against card, within TOL: dp, tp, fsdp, tp+fsdp
+   with SGD and Adam and EP over 4 ranks against the single-process
+   step; int8 momentum (card against CPU); a 2-step generalization-gap
+   sweep with ``use_mesh=True`` over 2 ranks against the single-process
+   sweep; a sharded checkpoint of the 4 ranks restored in one process.
 
 A line before the second-to-last gives the MoE path's kernels: each one's
 device ms and launches in the profiled generate, engine run and train
-step of phases 21–23; the line before it slice 8's (phases 25–29).
+step of phases 21–23; the line after it slice 8's (phases 25–29), then
+slice 9's (phases 31–33: launches a step on a rank and each rank's device
+ms in its profiled step). Times of ranks that share one card are not
+scaling numbers.
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, with a
 bound that sums the prefill calls' and the decode calls' own bounds; the paged
@@ -513,13 +552,21 @@ def gbn_call_times(label, fn, gate=None):
     launch: any other kernel (PyTorch arithmetic) or a second memset
     fails."""
     events = time_ms(fn)
-    device, kernels = profile_device_ms(fn, reps=10)
-    if device is None:
-        raise AssertionError(f"{label}: the profiler shows no device time")
-    per_call = {name: n for _, n, name in kernels}
-    gbn = sum(n for name, n in per_call.items() if "gbn_" in name)
-    memsets = sum(n for name, n in per_call.items() if "memset" in
-                  name.lower())
+    for attempt in range(3):
+        # a window that lost the GBN kernels' events (as profiler windows
+        # on the card now and then do) is profiled again, three at most
+        device, kernels = profile_device_ms(fn, reps=10)
+        if device is None:
+            raise AssertionError(f"{label}: the profiler shows no device "
+                                 f"time")
+        per_call = {name: n for _, n, name in kernels}
+        gbn = sum(n for name, n in per_call.items() if "gbn_" in name)
+        memsets = sum(n for name, n in per_call.items() if "memset" in
+                      name.lower())
+        if gbn >= 1:
+            break
+        log(f"    {label}: the profiled window lost the GBN kernels' "
+            f"events ({per_call}); profiling again")
     other = [name for name in per_call if "gbn_" not in name and
              "memset" not in name.lower()]
     log(f"    {label}: events {events:.4f} ms, device {device:.4f} ms a "
@@ -4926,6 +4973,777 @@ def memory_summary(runs):
     memory_kernel_line(runs)
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the parallel layer, ranks as processes that share the one card
+# ---------------------------------------------------------------------------
+
+MESH_DEVICE = "cuda"
+MESH_TIMEOUT = 420             # seconds one spawn of ranks may take
+MESH_DP_STEPS = 5              # timed, after one warm step (phase 31)
+MESH_LM_STEPS = 3              # timed, after one warm step (phase 32)
+MESH_EP_STEPS = 2              # timed, after one warm step (phase 33)
+MESH_EP_B = 4                  # phase 33's rows of TRAIN_T (see below)
+MESH_LM_LAYERS = 8             # qwen3-1.7b cut from 28 layers, as phase 10
+MESH_EP_LAYERS = 2             # qwen2-moe-a2.7b cut from 24, as phase 23
+MESH_LM_KINDS = {      # (arch, layers, tp, fsdp, timed steps, global rows)
+    "tp_fsdp": (SERVE_ARCH, MESH_LM_LAYERS, True, True, MESH_LM_STEPS,
+                TRAIN_B),
+    # experts over "model" (30 of 60 a rank), and FSDP over "data": pure
+    # EP keeps the 1.24 B replicated parameters whole on every rank, ~17.5
+    # GB a rank at the update (weights, gradients, the old and the new f32
+    # momentum), past one card for four ranks; with FSDP a rank peaks at
+    # ~12.7 GiB, and at 8 rows one rank also held 5.6 GiB of freed blocks
+    # and four overflowed the card: 4 rows, and expandable segments
+    # (spawn_ranks)
+    "ep": (MOE_ARCH, MESH_EP_LAYERS, False, True, MESH_EP_STEPS,
+           MESH_EP_B),
+}
+MESH_PARITY_STEPS = 2
+MESH_PARITY_MODES = {          # (model, mesh, tp, fsdp, optimizer)
+    **{f"{m}_{o}": ("dense", "data" if m == "dp" else "2d", "tp" in m,
+                    "fsdp" in m, o)
+       for m in ("dp", "tp", "fsdp", "tp_fsdp") for o in ("sgd", "adam")},
+    "ep_sgd": ("moe", "2d", False, False, "sgd"),
+}
+MESH_PARITY_ARCHS = {"dense": SERVE_ARCH + "-reduced",
+                     "moe": MOE_ARCH + "-reduced"}
+MESH_PARITY_LR = {"sgd": 0.05, "adam": 1e-3}
+MESH_SWEEP = dict(steps=2, large_batch=64, small_batch=32, ghost=16)
+ACC_TOL = 0.02     # sweep accuracies: read through the running statistics
+DROP_TOL = 0.005   # dropped share past the first MoE layer (see phase 33)
+MESH_KERNELS = ("gbn_forward", "gbn_backward", "rmsnorm_residual",
+                "rmsnorm_residual_backward", "swiglu", "swiglu_backward",
+                "flash_attention_rope", "flash_attention_backward")
+MESH_FAMILIES = {"gbn_forward": "gbn_fwd", "gbn_backward": "gbn_bwd",
+                 "rmsnorm_residual": "rmsnorm_residual",
+                 "rmsnorm_residual_backward": "rmsnorm_residual_bwd",
+                 "swiglu": "swiglu", "swiglu_backward": "swiglu_bwd",
+                 "flash_attention_rope": "flash_fwd",
+                 "flash_attention_backward": "flash_bwd"}
+
+
+def mesh_sync():
+    import torch
+    if MESH_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def rank_setup():
+    """A rank's process: every rank computes on the one card (device 0);
+    TF32 off and deterministic cuDNN, as in the parent."""
+    import torch
+    from repro_torch.device import set_precision
+    set_precision()
+    if MESH_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+
+
+def rank_peak_gib() -> float:
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if MESH_DEVICE == "cuda" else 0.0)
+
+
+def rank_dump(out, rank, res) -> None:
+    import pickle
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def spawn_ranks(label, fn, world, *args):
+    """``fn(rank, out, *args)`` on ``world`` spawned ranks (gloo, a
+    ``file://`` store, MESH_TIMEOUT); a rank that fails fails the phase.
+    Returns every rank's pickled results."""
+    import os
+    import pickle
+    import torch
+    from repro_torch.launch.spawn import run_ranks
+    if MESH_DEVICE == "cuda":
+        log(f"  {label}: this process holds "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+            f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved) of the "
+            f"card beside the ranks")
+    # the ranks' allocators grow segments in place: four ranks' freed
+    # blocks would otherwise strand GiBs of the one card
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as out:
+        run_ranks(fn, world, (out,) + tuple(args), timeout=MESH_TIMEOUT)
+        res = []
+        for r in range(world):
+            with open(Path(out) / f"rank{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+    log(f"  {label}: {world} ranks ran {time.perf_counter() - t0:.1f} s "
+        f"(spawn and set-up included)")
+    return res
+
+
+def mesh_family(name: str) -> str:
+    n = name.lower()
+    if any(k in n for k in ("gbn_bwd", "gbn_dx", "gbn_sum_ghosts")):
+        return "gbn_bwd"
+    return "gbn_fwd" if "gbn" in n else family(name)
+
+
+def rank_profile(fn):
+    """One call of ``fn`` (a step: every rank calls it alike) under the
+    profiler in this rank: device ms and kernels by family. One window
+    only: a second call on one rank alone would wait for the others' in
+    its collectives. Ranks share the card, so a kernel's device time can
+    hold time the card gave another rank's kernels."""
+    from repro_torch.launch import collectives as C
+
+    def aligned():
+        # every rank enters the step together: a collective timed inside
+        # waits for no rank's profiler start-up
+        C.barrier()
+        fn()
+
+    busy, kernels = profile_device_ms(aligned, reps=1, warm=False,
+                                      host=False, tries=1)
+    fam, calls = {}, {}
+    for t, count, name in kernels:
+        f = mesh_family(name)
+        fam[f] = fam.get(f, 0.0) + t
+        calls[f] = calls.get(f, 0) + count
+    return {"busy_ms": busy, "families": fam, "calls": calls}
+
+
+def dp_recipe():
+    from repro_torch.core import Regime, presets
+    lb = presets(BATCH, 128, GHOST)["LB+LR+GBN+RA"]
+    return lb, lb.build_regime(Regime(base_lr=0.1, total_steps=20,
+                                      drop_every=3))
+
+
+def dp_batch():
+    """One global batch of BATCH rows of 32 x 32 x 3, the same in every
+    process (numpy from a seed)."""
+    import torch
+    from repro_torch.data import teacher_classification
+    data = teacher_classification(0, n_train=BATCH, n_test=16,
+                                  input_shape=(32, 32, 3))
+    return (torch.as_tensor(data.x_train, device=MESH_DEVICE),
+            torch.as_tensor(data.y_train, device=MESH_DEVICE).long())
+
+
+def flat_leaves(t):
+    import torch
+    from repro_torch import tree
+    return torch.cat([a.detach().float().reshape(-1)
+                      for a in tree.leaves(t)])
+
+
+def dp_vision_rank(rank, out):
+    """Phase 31's rank: ResNet44 at published width on its 2048 rows."""
+    import torch
+    rank_setup()
+    from repro_torch.configs import RESNET44_CIFAR10 as cfg
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import gbn as K
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.models.cnn import model_fns
+    from repro_torch.optim import sgd
+    from repro_torch.train.data_parallel import make_dp_vision_train_step
+    mesh = make_data_mesh(device=MESH_DEVICE)
+    lb, regime = dp_recipe()
+    init, apply = model_fns(cfg)
+    params, state = init(0, cfg, MESH_DEVICE)
+    opt = sgd.init(params)
+    x, y = dp_batch()
+    xy = shard_batch({"x": x, "y": y}, mesh)
+    step = make_dp_vision_train_step(apply, cfg, lb, regime, mesh,
+                                     use_kernels=True)
+    res = {k: [] for k in ("losses", "ms", "launches", "calls", "bytes",
+                           "flat", "states")}
+    # dp_gbn_forward through B1 on this rank's rows (its own data): every
+    # rank's statistics gathered rank-major, its own against gbn_ref
+    from repro_torch.kernels import ref
+    from repro_torch.train.data_parallel import dp_gbn_forward
+    g = torch.Generator(device=MESH_DEVICE).manual_seed(11 + rank)
+    xs = torch.randn((BATCH // 2, 8, 8, 16), generator=g,
+                     device=MESH_DEVICE)
+    gamma = torch.linspace(0.5, 1.5, 16, device=MESH_DEVICE)
+    beta = torch.linspace(-1.0, 1.0, 16, device=MESH_DEVICE)
+    K.reset_launches()
+    yk, mu, var = dp_gbn_forward(xs, gamma, beta, mesh,
+                                 ghost_batch_size=GHOST, use_kernels=True)
+    G = xs.shape[0] // GHOST
+    yr, mur, varr = ref.gbn_ref(xs.reshape(G, -1, 16), gamma, beta)
+    res["dp_gbn"] = {
+        "launches": dict(K.launches),
+        "err": max(max_err(yk, yr.reshape(yk.shape)),
+                   max_err(mu[rank * G:(rank + 1) * G], mur),
+                   max_err(var[rank * G:(rank + 1) * G], varr)),
+        "mu": mu.cpu().numpy(), "var": var.cpu().numpy(),
+        "own_mu": mur.cpu().numpy()}
+    for i in range(1 + MESH_DP_STEPS):
+        K.reset_launches()
+        C.reset_stats()
+        mesh_sync()
+        t0 = time.perf_counter()
+        params, state, opt, m = step(params, state, opt, xy["x"], xy["y"], i)
+        mesh_sync()
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["launches"].append(dict(K.launches))
+        res["calls"].append(C.STATS["calls"])
+        res["bytes"].append(C.STATS["bytes"])
+        res["losses"].append(float(m["loss"]))
+        res["flat"].append(flat_leaves(params).cpu().numpy())
+        if i < 2:
+            res["states"].append(flat_leaves(state).cpu().numpy())
+    res["peak_gib"] = rank_peak_gib()
+    res["rows"] = xy["x"].shape[0]
+    # one more step, profiled, its all-reduce timed alone
+    C.reset_stats()
+    with C.timed():
+        res["profile"] = rank_profile(lambda: step(
+            params, state, opt, xy["x"], xy["y"], 1 + MESH_DP_STEPS))
+    res["allreduce_ms"], res["staged_bytes"] = (C.STATS["ms"],
+                                                C.STATS["staged_bytes"])
+    rank_dump(out, rank, res)
+
+
+def phase_mesh_dp():
+    """Phase 31: data-parallel ResNet44 over 2 ranks sharing the card, global
+    B=4096 (2048 a rank, ghosts of 128, LB+LR+GBN+RA), 1 warm and
+    MESH_DP_STEPS timed steps. Gates: exactly 43 + 43 GBN launches a step
+    on each rank; the ranks' parameters bit-identical after every step;
+    in f32, against the single-process card step on the same global batch
+    from the same parameters, the loss of the first three steps within
+    LOSS_TOL and the parameters after three steps within TOL; the running
+    statistics after steps 1 and 2 the mean of the single-process step's
+    states over each rank's shard (each rank folds its own ghosts)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import RESNET44_CIFAR10 as cfg
+    from repro_torch.models.cnn import model_fns
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import (make_vision_loss_fn,
+                                           make_vision_train_step)
+    init, apply = model_fns(cfg)
+    params, state = init(0, cfg, MESH_DEVICE)
+    lb, regime = dp_recipe()
+    x, y = dp_batch()
+    half = BATCH // 2
+    step = make_vision_train_step(apply, cfg, lb, regime, use_kernels=True)
+    loss_fn = make_vision_loss_fn(apply, cfg, lb, use_kernels=True)
+    p, s, o, s_dp = params, state, sgd.init(params), state
+    want_losses, want_states = [], []
+    for i in range(3):
+        if i < 2:
+            with torch.no_grad():
+                shards = [loss_fn(p, s_dp, x[h * half:(h + 1) * half],
+                                  y[h * half:(h + 1) * half])[1][0]
+                          for h in range(2)]
+            s_dp = tree.map(lambda a, b: a if a.dtype == torch.bool
+                            else (a + b) / 2, *shards)
+            want_states.append(flat_leaves(s_dp).cpu())
+        p, s, o, m = step(p, s, o, x, y, i)
+        want_losses.append(float(m["loss"]))
+    want_params = flat_leaves(p).cpu()
+    del params, state, p, s, o, s_dp, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("phase 31", dp_vision_rank, 2)
+    for r, res in enumerate(ranks):
+        d = res["dp_gbn"]
+        if d["launches"]["gbn_forward"] != 1 or d["err"] > TOL or not (
+                np.array_equal(d["mu"], ranks[0]["dp_gbn"]["mu"])
+                and np.array_equal(d["var"], ranks[0]["dp_gbn"]["var"])):
+            raise AssertionError(f"rank {r}: dp_gbn_forward {d['launches']}"
+                                 f", error {d['err']}")
+    log(f"  dp_gbn_forward (B1, {BATCH // 2} rows of 8 x 8 x 16 a rank, "
+        f"ghost {GHOST}): both ranks' statistics gathered rank-major, each "
+        f"rank's own against gbn_ref within "
+        f"{max(r['dp_gbn']['err'] for r in ranks):.3e}")
+    want = {"gbn_forward": 43, "gbn_backward": 43}
+    for r, res in enumerate(ranks):
+        if any(l != want for l in res["launches"]):
+            raise AssertionError(f"rank {r}: GBN launches a step "
+                                 f"{res['launches']}, want {want}")
+    for i, (a, b) in enumerate(zip(ranks[0]["flat"], ranks[1]["flat"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"ranks' parameters differ after step {i}")
+    for i in range(3):
+        check_close(f"dp loss step {i}", torch.tensor(ranks[0]["losses"][i]),
+                    torch.tensor(want_losses[i]), LOSS_TOL)
+    check_close("dp params after 3 steps",
+                torch.as_tensor(ranks[0]["flat"][2]), want_params, TOL)
+    for i in range(2):
+        for r, res in enumerate(ranks):
+            check_close(f"dp running stats r{r} step {i}",
+                        torch.as_tensor(res["states"][i]), want_states[i],
+                        TOL)
+    step_ms = [median(res["ms"][1:]) for res in ranks]
+    out = {"step_ms": step_ms, "allreduce_ms": [r["allreduce_ms"]
+                                                for r in ranks],
+           "bytes": ranks[0]["bytes"][1], "calls": ranks[0]["calls"][1],
+           "staged": ranks[0]["staged_bytes"],
+           "peak_gib": [r["peak_gib"] for r in ranks],
+           "profile": [r["profile"] for r in ranks],
+           "launches": ranks[0]["launches"][1]}
+    log(f"phase 31 dp {cfg.name} (2 ranks on one card, {ranks[0]['rows']} "
+        f"rows a rank, ghost {GHOST}): step ms a rank "
+        f"{[[round(t, 1) for t in r['ms']] for r in ranks]} (medians "
+        f"{[round(t, 2) for t in step_ms]}); losses {ranks[0]['losses']}; "
+        f"all-reduce a step: {out['calls']} call, {out['bytes']} bytes, "
+        f"{[round(t, 3) for t in out['allreduce_ms']]} ms (staged "
+        f"{out['staged']} bytes); peak "
+        f"{[round(g, 2) for g in out['peak_gib']]} GiB; launches a step "
+        f"{out['launches']}")
+    for r, prof in enumerate(out["profile"]):
+        log(f"  profile rank {r}: busy {prof['busy_ms']} ms, by family "
+            f"{ {k: round(v, 3) for k, v in prof['families'].items()} }, "
+            f"kernels {prof['calls']}")
+    return out
+
+
+def lm_mesh_rank(rank, out, kind):
+    """Phases 32 and 33's rank: MESH_LM_KINDS[kind] at published widths
+    over the (2 data, 2 model) mesh, bf16, its global rows of TRAIN_T."""
+    import torch
+    rank_setup()
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import LargeBatchConfig, Regime
+    from repro_torch.data import lm_sequences, token_lm
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import MODEL_AXIS, make_2d_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import sgd
+    from repro_torch.train import parallel as PAR
+    from repro_torch.train.trainer import make_lm_train_step
+    arch, layers, tp, fsdp, timed_steps, n_rows = MESH_LM_KINDS[kind]
+    cfg = dataclasses.replace(get_config(arch), body_repeats=layers)
+    mesh = make_2d_mesh(device=MESH_DEVICE)
+    params = TT.init_params(SERVE_SEED, cfg, MESH_DEVICE)
+    lb = LargeBatchConfig(batch_size=n_rows, base_batch_size=n_rows,
+                          grad_clip=1.0)
+    regime = Regime(base_lr=TRAIN_LR, total_steps=100, drop_every=100)
+    step = make_lm_train_step(cfg, lb, regime, use_kernels=True, mesh=mesh,
+                              params=params, tp=tp, fsdp=fsdp)
+    specs = tree.leaves(step.param_specs)
+    res = {"state_bytes": {
+        "params": PAR.state_bytes_per_device(params, step.param_specs, mesh),
+        "momentum": PAR.state_bytes_per_device(
+            tree.map(lambda a: torch.empty(a.shape, dtype=torch.float32,
+                                           device="meta"), params),
+            step.param_specs, mesh)}}
+    p = PAR.shard_tree(mesh, params, step.param_specs)
+    del params
+    gc.collect()
+    if MESH_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    o = sgd.init(p)
+    res["local_bytes"] = {
+        "params": sum(t.numel() * t.element_size() for t in tree.leaves(p)),
+        "momentum": sum(t.numel() * t.element_size()
+                        for t in tree.leaves(o.momentum))}
+    if cfg.moe is not None:
+        ffs = [b["ff"] for slot in p["stack"]["body"] for b in slot
+               if "router" in b.get("ff", {})]
+        res["experts_local"] = ffs[0]["w_gate"].shape[0]
+        res["expert_bytes"] = sum(f[k].numel() * f[k].element_size()
+                                  for f in ffs
+                                  for k in ("w_gate", "w_up", "w_down"))
+    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
+                                 n_tokens=n_rows * TRAIN_T), TRAIN_T)
+    batch = shard_batch({"tokens": torch.as_tensor(
+        rows, device=MESH_DEVICE).long()}, mesh)
+    res["rows"] = n_rows
+    real_slots, drops = MOE._slots, []
+
+    def counted_slots(topi, C_):
+        slot, keep = real_slots(topi, C_)
+        drops.append(((~keep).sum(), keep.numel()))
+        return slot, keep
+
+    res.update({k: [] for k in ("losses", "ms", "launches", "calls",
+                                "bytes")})
+    if MESH_DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + timed_steps):
+        reset_all_launches()
+        C.reset_stats()
+        MOE._slots = counted_slots if i == 0 else real_slots
+        mesh_sync()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, batch, i)
+        mesh_sync()
+        MOE._slots = real_slots
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["launches"].append(all_launches())
+        res["calls"].append(C.STATS["calls"])
+        res["bytes"].append(C.STATS["bytes"])
+        res["losses"].append(float(m["loss"]))
+    res["drops"] = [(int(d), n) for d, n in drops]
+    res["peak_gib"] = rank_peak_gib()
+    # one more step, profiled, each collective in it timed alone
+    C.reset_stats()
+    with C.timed():
+        res["profile"] = rank_profile(lambda: step(p, o, batch,
+                                                   1 + timed_steps))
+    res["collective_ms"], res["staged_bytes"] = (C.STATS["ms"],
+                                                 C.STATS["staged_bytes"])
+    # the leaves the step keeps whole over "model" hold the same bits on
+    # both ranks of a model group (exact: a gather adds only zeros)
+    same, checked = True, 0
+    for leaf, s in zip(tree.leaves(p), specs):
+        if MODEL_AXIS in PAR._spec_axes(s):
+            continue
+        bits = leaf.detach().contiguous()
+        bits = (bits.view(torch.int16) if bits.element_size() == 2
+                else bits.view(torch.int32)).to(torch.int32).reshape(1, -1)
+        g = C.all_gather(bits, MODEL_AXIS, mesh, 0)
+        same = same and bool(torch.equal(g[0], g[1]))
+        checked += 1
+    res["model_group_identical"], res["checked_leaves"] = same, checked
+    res["coords"] = mesh.coords
+    rank_dump(out, rank, res)
+
+
+def mesh_lm_gates(label, ranks, L):
+    """Exact launches a step on every rank, the loss falling on each, the
+    model-replicated leaves bit-identical across each model group."""
+    want = want_launches(rmsnorm_residual=2 * L + 1,
+                         rmsnorm_residual_backward=2 * L + 1, swiglu=L,
+                         swiglu_backward=L, flash_attention_rope=L,
+                         flash_attention_backward=L)
+    for r, res in enumerate(ranks):
+        if any(l != want for l in res["launches"]):
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{res['launches']}, want {want}")
+        losses = res["losses"]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{label} rank {r}: loss did not fall: "
+                                 f"{losses}")
+        if not res["model_group_identical"]:
+            raise AssertionError(f"{label} rank {r}: model-replicated "
+                                 f"leaves differ across its model group")
+    return want
+
+
+def mesh_lm_summary(label, ranks, want):
+    step_ms = [median(r["ms"][1:]) for r in ranks]
+    log(f"{label} (4 ranks on one card, (2 data, 2 model), "
+        f"B={ranks[0]['rows']} x T={TRAIN_T} globally): step ms a rank "
+        f"{[[round(t, 1) for t in r['ms']] for r in ranks]} (medians "
+        f"{[round(t, 1) for t in step_ms]}); losses "
+        f"{[[round(x, 4) for x in r['losses']] for r in ranks]}; "
+        f"collectives a step {ranks[0]['calls'][1]} calls, "
+        f"{ranks[0]['bytes'][1]} bytes, "
+        f"{[round(r['collective_ms'], 1) for r in ranks]} ms (staged "
+        f"{ranks[0]['staged_bytes']} bytes); peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; state a rank "
+        f"{ranks[0]['local_bytes']} bytes (state_bytes_per_device "
+        f"{ranks[0]['state_bytes']}); model-replicated leaves checked "
+        f"{ranks[0]['checked_leaves']} a rank, bit-identical; launches a "
+        f"step { {k: v for k, v in want.items() if v} }")
+    for r, res in enumerate(ranks):
+        prof = res["profile"]
+        log(f"  profile rank {r}: busy {prof['busy_ms']} ms, by family "
+            f"{ {k: round(v, 3) for k, v in prof['families'].items()} }, "
+            f"kernels {prof['calls']}")
+    return {"step_ms": step_ms, "ranks": ranks, "launches": want}
+
+
+def phase_mesh_lm():
+    """Phase 32: qwen3-1.7b at published widths, depth cut to
+    MESH_LM_LAYERS, over 4 ranks as (2 data, 2 model), tp=True and
+    fsdp=True, bf16, SGD at TRAIN_LR, no noise, B=8 x 512 globally; 1 warm
+    and MESH_LM_STEPS timed steps. Gates (``mesh_lm_gates``): a step's
+    launches on every rank exactly 17 rmsnorm_residual and its backward, 8
+    of swiglu, swiglu_backward, flash_attention_rope and
+    flash_attention_backward (a rank's TP slice, 8 of 16 q heads, 4 of 8
+    kv heads and d_ff 3072, through the same kernels), nothing else; the
+    loss falls; the model-replicated leaves are bit-identical across each
+    model group."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("phase 32", lm_mesh_rank, 4, "tp_fsdp")
+    want = mesh_lm_gates("phase 32", ranks, MESH_LM_LAYERS)
+    return mesh_lm_summary(f"phase 32 {SERVE_ARCH} tp+fsdp "
+                           f"({MESH_LM_LAYERS} of 28 layers)", ranks, want)
+
+
+def phase_mesh_ep():
+    """Phase 33: qwen2-moe-a2.7b at published widths, depth cut to
+    MESH_EP_LAYERS, over 4 ranks as (2 data, 2 model): 30 of the 60
+    experts a rank, the large leaves also FSDP over "data"
+    (MESH_LM_KINDS says why); bf16, B=MESH_EP_B x 512 globally,
+    1 warm and MESH_EP_STEPS timed steps. Gates: ``mesh_lm_gates`` (5/5
+    norm, 2/2 SwiGLU (the shared expert), 2/2 RoPE flash attention a
+    step); 30 local experts; the dropped assignments of the first step's
+    first MoE layer equal, in count, the single-process card forward's on
+    the same global batch and parameters (its inputs are the same rows
+    through the same replicated layers); a later layer's share within
+    DROP_TOL of it (its input carries the experts' combine, summed over
+    the model group in another order)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_sequences, token_lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              body_repeats=MESH_EP_LAYERS)
+    params = TT.init_params(SERVE_SEED, cfg, MESH_DEVICE)
+    rows = lm_sequences(token_lm(TRAIN_SEED, vocab_size=cfg.vocab_size,
+                                 n_tokens=MESH_EP_B * TRAIN_T), TRAIN_T)
+    tokens = torch.as_tensor(rows, device=MESH_DEVICE).long()
+    real_slots, drops = MOE._slots, []
+
+    def counted_slots(topi, C_):
+        slot, keep = real_slots(topi, C_)
+        drops.append(((~keep).sum(), keep.numel()))
+        return slot, keep
+
+    MOE._slots = counted_slots
+    try:
+        with torch.no_grad():
+            TT.lm_loss(params, cfg, {"tokens": tokens}, use_kernels=True)
+    finally:
+        MOE._slots = real_slots
+    want_drops = [(int(d), n) for d, n in drops]
+    del params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("phase 33", lm_mesh_rank, 4, "ep")
+    want = mesh_lm_gates("phase 33", ranks, MESH_EP_LAYERS)
+    if any(r["experts_local"] != cfg.moe.n_experts // 2 for r in ranks):
+        raise AssertionError("phase 33: a rank does not hold 30 experts")
+    # model rank 0 of each data row: its tokens' routing (the model group
+    # routes the same tokens)
+    rows_of = [r for r in ranks if r["coords"]["model"] == 0]
+    got = [(sum(r["drops"][l][0] for r in rows_of),
+            sum(r["drops"][l][1] for r in rows_of))
+           for l in range(len(want_drops))]
+    shares = [(g[0] / g[1], w[0] / w[1]) for g, w in zip(got, want_drops)]
+    log(f"phase 33 dropped assignments by layer (mesh, one process): "
+        f"{got} vs {want_drops}; shares "
+        f"{[(round(a, 5), round(b, 5)) for a, b in shares]}")
+    if got[0] != want_drops[0]:
+        raise AssertionError(f"phase 33: first MoE layer drops {got[0]}, "
+                             f"one process {want_drops[0]}")
+    if any(abs(a - b) > DROP_TOL for a, b in shares[1:]):
+        raise AssertionError(f"phase 33: dropped shares {shares}")
+    out = mesh_lm_summary(f"phase 33 {MOE_ARCH} ep+fsdp ({MESH_EP_LAYERS} of 24 "
+                          f"layers, {ranks[0]['experts_local']} of "
+                          f"{cfg.moe.n_experts} experts a rank, "
+                          f"{ranks[0]['expert_bytes']} expert bytes a rank)",
+                          ranks, want)
+    out["shares"] = shares
+    return out
+
+
+def parity_setup(key):
+    """A reduced config in f32 and its parameters and tokens (the same in
+    every process: CPU generators, then moved)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_config(MESH_PARITY_ARCHS[key]),
+                              dtype="float32")
+    params = tree.map(lambda t: t.to(MESH_DEVICE),
+                      TT.init_params(3, cfg, device="cpu"))
+    g = torch.Generator().manual_seed(6)
+    tokens = [torch.randint(0, cfg.vocab_size, (8, 64), generator=g)
+              .to(MESH_DEVICE) for _ in range(MESH_PARITY_STEPS)]
+    return cfg, params, tokens
+
+
+def parity_recipe(optimizer):
+    from repro_torch.core import LargeBatchConfig, Regime
+    lb = LargeBatchConfig(batch_size=8, base_batch_size=8, grad_clip=1.0)
+    return lb, Regime(base_lr=MESH_PARITY_LR[optimizer], total_steps=10,
+                      drop_every=10)
+
+
+def parity_rank(rank, out, ckpt_dir):
+    """Phase 34's 4 ranks: every mode of MESH_PARITY_MODES for
+    MESH_PARITY_STEPS steps (kernels on); the tp_fsdp_sgd run writes its
+    sharded checkpoint. Rank 0 keeps each run's whole parameters."""
+    rank_setup()
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_2d_mesh, make_data_mesh
+    from repro_torch.optim import adam, sgd
+    from repro_torch.train import parallel as PAR
+    from repro_torch.train.trainer import make_lm_train_step
+    meshes = {"data": make_data_mesh(device=MESH_DEVICE),
+              "2d": make_2d_mesh(device=MESH_DEVICE)}
+    res = {}
+    for name, (key, mkey, tp, fsdp, opt_name) in MESH_PARITY_MODES.items():
+        mesh = meshes[mkey]
+        cfg, params, tokens = parity_setup(key)
+        lb, regime = parity_recipe(opt_name)
+        step = make_lm_train_step(cfg, lb, regime, use_kernels=True,
+                                  mesh=mesh, params=params, tp=tp,
+                                  fsdp=fsdp, optimizer=opt_name)
+        init = adam.init if opt_name == "adam" else sgd.init
+        p = PAR.shard_tree(mesh, params, step.param_specs)
+        o = PAR.shard_tree(mesh, init(params), step.opt_specs)
+        losses = []
+        for i, t in enumerate(tokens):
+            p, o, m = step(p, o, shard_batch({"tokens": t}, mesh), i)
+            losses.append(float(m["loss"]))
+        whole = flat_leaves(PAR.unshard_tree(mesh, p, step.param_specs))
+        res[name] = {"losses": losses,
+                     "params": whole.cpu().numpy() if rank == 0 else None}
+        if name == "tp_fsdp_sgd":
+            ckpt.save(ckpt_dir, MESH_PARITY_STEPS, p, o, sharded=True,
+                      layout=(mesh, step.param_specs, step.opt_specs))
+    rank_dump(out, rank, res)
+
+
+def sweep_rank(rank, out, sweep_dir):
+    """Phase 34's 2-rank sweep: MESH_SWEEP with use_mesh=True."""
+    rank_setup()
+    from repro_torch.experiments import registry
+    from repro_torch.experiments.runner import run_sweep
+    sweep = registry.generalization_gap(**MESH_SWEEP, use_mesh=True)
+    rank_dump(out, rank, run_sweep(sweep, sweep_dir, device=MESH_DEVICE))
+
+
+def phase_mesh_parity(tmp):
+    """Phase 34: reduced f32, card against card, within TOL (losses
+    LOSS_TOL): each mode of MESH_PARITY_MODES over 4 ranks (dp over (4,),
+    tp, fsdp and tp+fsdp over (2, 2), SGD and Adam; EP on reduced
+    qwen2-moe) against the single-process card step on the same global
+    batches; int8 momentum, one process, card against CPU; a 2-step
+    generalization-gap sweep with use_mesh=True over 2 ranks against the
+    single-process sweep (the +GBN columns' distance series within TOL,
+    accuracies, read through the running statistics whose EMA each rank
+    folds on its own, within ACC_TOL; the plain-BN columns, which
+    normalize over a rank's shard by design, run their steps); and the
+    tp_fsdp_sgd run's sharded checkpoint, written by the 4 ranks,
+    restored in one process equal to its whole parameters bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.experiments import registry
+    from repro_torch.experiments.runner import run_sweep
+    from repro_torch.optim import adam, sgd
+    from repro_torch.train.trainer import make_lm_train_step
+    want = {}
+    for key, opt_name in {(v[0], v[4]) for v in MESH_PARITY_MODES.values()}:
+        cfg, params, tokens = parity_setup(key)
+        lb, regime = parity_recipe(opt_name)
+        step = make_lm_train_step(cfg, lb, regime, use_kernels=True,
+                                  optimizer=opt_name)
+        p = params
+        o = (adam.init if opt_name == "adam" else sgd.init)(p)
+        losses = []
+        for i, t in enumerate(tokens):
+            p, o, m = step(p, o, {"tokens": t}, i)
+            losses.append(float(m["loss"]))
+        want[(key, opt_name)] = (losses, flat_leaves(p).cpu())
+    ckpt_dir = str(Path(tmp) / "sharded_ckpt")
+    ranks = spawn_ranks("phase 34 modes", parity_rank, 4, ckpt_dir)
+    worst = {}
+    for name, (key, _, _, _, opt_name) in MESH_PARITY_MODES.items():
+        losses, params = want[(key, opt_name)]
+        for r, res in enumerate(ranks):
+            check_close(f"{name} r{r} losses",
+                        torch.tensor(res[name]["losses"]),
+                        torch.tensor(losses), LOSS_TOL)
+        worst[name] = check_close(f"{name} params",
+                                  torch.as_tensor(ranks[0][name]["params"]),
+                                  params, TOL)
+    # int8 momentum, one process: card (kernels) against CPU (plain)
+    outs = {}
+    for dev in (MESH_DEVICE, "cpu"):
+        cfg, params, tokens = parity_setup("dense")
+        lb, regime = parity_recipe("sgd")
+        step = make_lm_train_step(cfg, lb, regime, use_kernels=dev != "cpu",
+                                  momentum_dtype="int8")
+        p = tree.map(lambda t: t.to(dev), params)
+        o = sgd.init(p, momentum_dtype="int8")
+        losses = []
+        for i, t in enumerate(tokens):
+            p, o, m = step(p, o, {"tokens": t.to(dev)}, i)
+            losses.append(float(m["loss"]))
+        outs[dev] = (losses, flat_leaves(p).cpu())
+    check_close("int8 momentum losses", torch.tensor(outs[MESH_DEVICE][0]),
+                torch.tensor(outs["cpu"][0]), LOSS_TOL)
+    worst["int8"] = check_close("int8 momentum params", outs[MESH_DEVICE][1],
+                                outs["cpu"][1], TOL)
+    # the sharded checkpoint, restored in one process
+    cfg, params, _ = parity_setup("dense")
+    got, step_no = ckpt.restore(ckpt_dir, params)
+    meta = ckpt.load_meta(ckpt_dir)
+    shards = sorted(p.name for p in Path(ckpt_dir).glob("params_*.shard*"))
+    if step_no != MESH_PARITY_STEPS or meta["num_processes"] != 4 or \
+            len(shards) != 4 or not torch.equal(
+                flat_leaves(got).cpu(),
+                torch.as_tensor(ranks[0]["tp_fsdp_sgd"]["params"])):
+        raise AssertionError(f"sharded checkpoint: step {step_no}, meta "
+                             f"{meta}, shards {shards}")
+    log(f"  sharded checkpoint: {shards} + meta (num_processes 4), "
+        f"restored in one process bit-equal to the ranks' parameters")
+    # the use_mesh sweep over 2 ranks against one process
+    solo = run_sweep(registry.generalization_gap(**MESH_SWEEP),
+                     str(Path(tmp) / "solo_sweep"), device=MESH_DEVICE)
+    by_method = {r["method"]: r for r in solo}
+    swept = spawn_ranks("phase 34 sweep", sweep_rank, 2,
+                        str(Path(tmp) / "mesh_sweep"))
+    for recs in swept:
+        if sorted(r["method"] for r in recs) != sorted(by_method):
+            raise AssertionError("use_mesh sweep: methods differ")
+        for r in recs:
+            w = by_method[r["method"]]
+            if r["steps"] != w["steps"] or not all(
+                    math.isfinite(r[k]) for k in ("final_acc", "train_acc")):
+                raise AssertionError(f"use_mesh sweep {r['method']}: bad "
+                                     f"record")
+            if not r["spec"]["lb"]["use_gbn"]:
+                continue
+            for k in ("final_acc", "best_acc", "train_acc"):
+                if abs(r[k] - w[k]) > ACC_TOL:
+                    raise AssertionError(f"use_mesh sweep {r['method']} {k}"
+                                         f": {r[k]} vs {w[k]}")
+            check_close(f"sweep {r['method']} distance",
+                        torch.tensor(r["metrics"]["distance"][1]),
+                        torch.tensor(w["metrics"]["distance"][1]), TOL)
+    log(f"phase 34 parity (reduced f32, card against card, 4 ranks): worst "
+        f"parameter error by mode { {k: float(f'{v:.3e}') for k, v in worst.items()} }"
+        f"; use_mesh sweep over 2 ranks: " + ", ".join(
+            f"{r['method']} acc {r['final_acc']:.4f} (one process "
+            f"{by_method[r['method']]['final_acc']:.4f})" for r in swept[0]))
+    return worst
+
+
+def mesh_kernel_line(dp, lm, ep):
+    """Slice 9's kernels: launches a step on a rank and device ms a step in
+    each rank's profiled step, per phase (ranks share the card, so these
+    are not scaling numbers)."""
+    rows = []
+    for label, run in (("phase 31", dp), ("phase 32", lm), ("phase 33", ep)):
+        profs = run["profile"] if label == "phase 31" else \
+            [r["profile"] for r in run["ranks"]]
+        launches = run["launches"]
+        for name in MESH_KERNELS:
+            n = launches.get(name, 0)
+            if not n:
+                continue
+            fam = MESH_FAMILIES[name]
+            rows.append({"phase": label, "name": name, "launches": n,
+                         "ms_by_rank": [round(p["families"].get(fam, 0.0), 4)
+                                        for p in profs],
+                         "family": fam})
+    log("slice 9 mesh kernels: " + json.dumps(rows))
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -5045,6 +5863,18 @@ def main() -> int:
         lap("jamba")
         phase_new_cuda_vs_cpu()
         lap("new configs cuda vs cpu")
+        # slice 9: the parallel layer, 2 and 4 ranks sharing the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_dp = phase_mesh_dp()
+        lap("mesh dp")
+        mesh_lm = phase_mesh_lm()
+        lap("mesh lm")
+        mesh_ep = phase_mesh_ep()
+        lap("mesh ep")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            phase_mesh_parity(tmp)
+        lap("mesh parity")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5118,6 +5948,7 @@ def main() -> int:
                                         for a, s in lm_sweeps.items()))
     moe_summary(moe_serve, moe_engine, moe_train)
     memory_summary(memory_runs)
+    mesh_kernel_line(mesh_dp, mesh_lm, mesh_ep)
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
         f" (seconds by part: {took})")
     log(smi)

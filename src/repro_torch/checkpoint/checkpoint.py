@@ -13,10 +13,15 @@ either package restores in the other:
 - convolution weights are HWIO, and a decoder's body layers are stacked on
   a leading ``body_repeats`` axis (:mod:`repro_torch.convert`).
 
-``restore`` also reads the JAX package's sharded layout (one
-``{kind}_{step}.shard{proc}.npz`` a process, each entry name carrying its
-shard's global index) and reassembles full arrays. Writing that layout
-comes with the parallel slice.
+The sharded layout (``save(..., sharded=True)``): each rank of a
+``torch.distributed`` world writes its own ``{kind}_{step}.shard{rank}.npz``
+holding its slices, each entry named ``<key>##<start:stop,...>`` after the
+slice's global index (a body layer's slice also carries its
+``i:i+1`` span on the stacked axis); after every rank has written, rank 0
+writes the meta (with ``sharded`` and ``num_processes``) and then the
+``latest`` pointer. ``restore`` (this one and the JAX package's) pastes
+the pieces into full arrays: geometry-free, so a checkpoint saved by four
+ranks restores in one process.
 """
 from __future__ import annotations
 
@@ -27,8 +32,12 @@ import types
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import convert, tree
+from repro_torch.device import process_index_count
+from repro_torch.launch import collectives
+from repro_torch.launch.mesh import spec_axes
 
 _KINDS = ("params", "opt", "state")
 
@@ -96,19 +105,95 @@ def _flatten(t: Any) -> Dict[str, np.ndarray]:
     return flat
 
 
+def _flatten_shards(t: Any, specs: Any, mesh) -> Dict[str, np.ndarray]:
+    """This rank's slices of ``t`` (laid out by ``specs`` on ``mesh``;
+    None: whole leaves) as ``<key>##<start:stop,...>`` entries in the JAX
+    package's layout: HWIO convolutions, body layers at their index on the
+    stacked axis, bf16 as f32."""
+    flat: Dict[str, np.ndarray] = {}
+    decoder = convert.is_decoder_tree(t)
+
+    def leaf(key, a, s, lead):
+        a = a.detach().cpu()
+        a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+        spans = []
+        for dim, size in enumerate(a.shape):
+            axes = spec_axes(s[dim]) if s is not None else ()
+            i = mesh.index(axes) if axes else 0
+            spans.append((i * size, (i + 1) * size))
+        if not decoder and a.ndim == 4:                   # OIHW -> HWIO
+            a = a.transpose(2, 3, 1, 0)
+            spans = [spans[2], spans[3], spans[1], spans[0]]
+        if lead is not None:
+            a, spans = a[None], [lead] + spans
+        tag = ",".join(f"{lo}:{hi}" for lo, hi in spans)
+        flat[f"{key}##{tag}"] = np.array(a, order="C")
+
+    def walk(x, s, prefix, lead=None):
+        def sub(k):
+            return None if s is None else s[k]
+        if isinstance(x, dict):
+            if set(x) == {"head", "body", "tail"}:
+                for k in ("head", "tail"):
+                    for i, b in enumerate(x[k]):
+                        walk(b, None if s is None else s[k][i],
+                             prefix + (k, str(i)))
+                for j, layers in enumerate(x["body"]):
+                    for i, b in enumerate(layers):
+                        walk(b, None if s is None else s["body"][j][i],
+                             prefix + ("body", str(j)), (i, i + 1))
+                return
+            for k, v in x.items():
+                walk(v, sub(k), prefix + (str(k),), lead)
+        elif _is_namedtuple(x):
+            for f, v in zip(x._fields, x):
+                walk(v, None if s is None else getattr(s, f),
+                     prefix + (f".{f}",), lead)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, sub(i), prefix + (str(i),), lead)
+        elif x is not None:
+            leaf("/".join(prefix), x, s, lead)
+
+    walk(t, specs, ())
+    return flat
+
+
 def save(path: str, step: int, params: Any, opt_state: Any = None,
          extra: Optional[Dict[str, Any]] = None,
-         bn_state: Any = None, *, sharded: bool = False) -> None:
-    """Write ``step``'s trees and meta, then point ``latest`` at it."""
-    if sharded:
-        raise NotImplementedError("the sharded checkpoint layout comes with "
-                                  "the parallel slice (train/parallel.py)")
+         bn_state: Any = None, *, sharded: bool = False,
+         layout=None) -> None:
+    """Write ``step``'s trees and meta, then point ``latest`` at it.
+
+    ``sharded=True``: every rank of the world calls ``save`` alike and
+    writes its own shard files (see the module docstring); ``layout`` is
+    (mesh, param specs, optimizer specs) when the trees are this rank's
+    slices (:func:`repro_torch.train.parallel.shard_tree`), else the trees
+    are whole on every rank."""
     os.makedirs(path, exist_ok=True)
-    for kind, t in zip(_KINDS, (params, opt_state, bn_state)):
-        if t is not None:
-            np.savez(os.path.join(path, f"{kind}_{step}.npz"), **_flatten(t))
+    rank, world = process_index_count() if sharded else (0, 1)
+    trees = (params, opt_state, bn_state)
+    if sharded:
+        mesh, pspecs, ospecs = layout if layout is not None \
+            else (None, None, None)
+        for kind, t, specs in zip(_KINDS, trees, (pspecs, ospecs, None)):
+            if t is not None:
+                np.savez(os.path.join(path, f"{kind}_{step}.shard{rank}.npz"),
+                         **_flatten_shards(t, specs, mesh))
+        collectives.barrier()
+        if rank != 0:
+            return
+    else:
+        for kind, t in zip(_KINDS, trees):
+            if t is not None:
+                np.savez(os.path.join(path, f"{kind}_{step}.npz"),
+                         **_flatten(t))
+    meta = {"step": step, **(extra or {})}
+    if sharded:
+        meta["sharded"] = True
+        meta["num_processes"] = world
     with open(os.path.join(path, f"meta_{step}.json"), "w") as f:
-        json.dump({"step": step, **(extra or {})}, f)
+        json.dump(meta, f)
     # the pointer last and atomically (temp + rename): a kill at any point
     # mid-save leaves either the previous pointer or the new one, never a
     # truncated "latest"

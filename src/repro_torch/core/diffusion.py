@@ -1,15 +1,15 @@
-"""Ultra-slow diffusion instrumentation (paper §3, Figure 2); port of
-``repro.core.diffusion`` (the Appendix-B random-potential probe is not
-ported yet).
+"""Ultra-slow diffusion instrumentation (paper §3, Figure 2, and the
+Appendix-B probe); port of ``repro.core.diffusion``.
 
 The paper models the initial high-LR phase as a random walk on a random
 potential with ``||w_t - w_0|| ~ log t``. This module tracks the weight
-distance from the initialization and fits the log-t law against a
-power law.
+distance from the initialization, fits the log-t law against a power law,
+and probes the loss's spread against the distance on random rays
+(:func:`random_potential_probe`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,19 +71,27 @@ def fit_power_diffusion(steps: Sequence[int], distances: Sequence[float],
 class DiffusionTracker:
     """Accumulates (step, ||w_t - w_0||) pairs during training.
 
+    ``norm`` computes the norm of a tree of differences (default: the
+    global norm); a run whose parameters are sharded over a mesh passes
+    one that sums the slices' squares over the mesh
+    (:func:`repro_torch.train.parallel.sharded_global_norm`).
+
     ``record`` leaves the distance on the device; the floats cross to the
     host in one transfer the first time ``distances`` is read.
     """
 
-    def __init__(self, params0: Any):
+    def __init__(self, params0: Any,
+                 norm: Optional[Callable[[Any], torch.Tensor]] = None):
         self.params0 = tree.map(lambda a: a.detach().float().clone(), params0)
+        self._norm = norm or global_norm
         self.steps: List[int] = []
         self._pending: List[torch.Tensor] = []
         self._host: List[float] = []
 
     @torch.no_grad()
     def record(self, step: int, params: Any) -> torch.Tensor:
-        d = weight_distance(params, self.params0)
+        d = self._norm(tree.map(lambda a, b: a.float() - b, params,
+                                self.params0))
         self.steps.append(step)
         self._pending.append(d)
         return d
@@ -106,3 +114,61 @@ class DiffusionTracker:
 
     def power_fit(self, burn_in: int = 1) -> Dict[str, float]:
         return fit_power_diffusion(self.steps, self.distances, burn_in)
+
+
+# ---------------------------------------------------------------------------
+# Appendix-B probe: loss std vs weight distance on random rays
+# ---------------------------------------------------------------------------
+
+
+def random_potential_probe(loss_fn: Callable[[Any], Any], params0: Any,
+                           generator: torch.Generator, *,
+                           n_samples: int = 200, max_radius: float = 10.0,
+                           n_bins: int = 10) -> Dict[str, np.ndarray]:
+    """Paper Appendix B: sample w = w0 + z*v (v a random unit direction, z
+    ~ U[0, max_radius]); estimate std(L(w) - L(w0)) per distance bin.
+    Under the alpha=2 random-potential model the std grows ~ linearly with
+    distance. The draws come from ``generator`` (each sample a standard
+    normal direction per leaf, then z); :func:`_probe_from_draws` does the
+    rest."""
+    leaves = tree.leaves(params0)
+    dirs, zs = [], []
+    for _ in range(n_samples):
+        dirs.append([torch.randn(l.shape, generator=generator,
+                                 device=l.device) for l in leaves])
+        zs.append(float(torch.rand((), generator=generator,
+                                   device=leaves[0].device)) * max_radius)
+    return _probe_from_draws(loss_fn, params0, dirs, zs,
+                            max_radius=max_radius, n_bins=n_bins)
+
+
+def _probe_from_draws(loss_fn: Callable[[Any], Any], params0: Any,
+                     dirs: Sequence[Sequence[Any]], zs: Sequence[float], *,
+                     max_radius: float = 10.0, n_bins: int = 10
+                     ) -> Dict[str, np.ndarray]:
+    """The probe from given draws: ``dirs[i]`` one direction per leaf of
+    ``params0`` (tensors or numpy, :func:`tree.leaves` order), ``zs[i]``
+    its distance. Bins with at least 3 samples report the RMS loss change
+    at their center."""
+    leaves = [l.detach().float() for l in tree.leaves(params0)]
+    l0 = float(loss_fn(params0))
+    dists, dlosses = [], []
+    for draw, z in zip(dirs, zs):
+        d = [x.to(l.device, torch.float32) if isinstance(x, torch.Tensor)
+             else torch.tensor(np.asarray(x, np.float32), device=l.device)
+             for x, l in zip(draw, leaves)]
+        nrm = float(torch.stack([x.square().sum() for x in d]).sum().sqrt())
+        w = tree.unflatten(params0, [l + (z / nrm) * x
+                                     for l, x in zip(leaves, d)])
+        dists.append(z)
+        dlosses.append(float(loss_fn(w)) - l0)
+    dists_a = np.asarray(dists)
+    dl = np.asarray(dlosses)
+    edges = np.linspace(0.0, max_radius, n_bins + 1)
+    centers, stds = [], []
+    for b in range(n_bins):
+        m = (dists_a >= edges[b]) & (dists_a < edges[b + 1])
+        if m.sum() >= 3:
+            centers.append(0.5 * (edges[b] + edges[b + 1]))
+            stds.append(float(np.sqrt(np.mean(dl[m] ** 2))))
+    return {"distance": np.asarray(centers), "loss_std": np.asarray(stds)}

@@ -10,7 +10,10 @@
 
 ``run`` is resumable by default: re-invoking it after a kill skips recorded
 runs and resumes the interrupted one from its checkpoint. It trains on the
-card unless ``--device cpu``.
+card unless ``--device cpu``. Under a launcher that sets ``WORLD_SIZE`` and
+``RANK`` (``torchrun --nproc-per-node N``) every rank joins one gloo
+process group, and ``--mesh`` fans the runs over the ranks (see
+``runner._mesh_for``).
 """
 from __future__ import annotations
 
@@ -47,6 +50,8 @@ def cmd_show(args) -> None:
 
 
 def cmd_run(args) -> None:
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed()
     sweep = get_sweep(args.sweep, **_sweep_overrides(args))
     records = run_sweep(sweep, args.out, resume=not args.fresh,
                         checkpoint_every=args.checkpoint_every,

@@ -114,7 +114,9 @@ def lm_smoke(*, steps: int = 30, arch: str = "qwen3-1.7b",
     gradient noise (the norm-free GBN twin) — a runner smoke, not a paper
     table. Runs ``use_kernels=True``: training differentiates through the
     CUDA kernel pairs' autograd Functions. ``use_mesh`` is part of the
-    run's identity; the port runs it on one device."""
+    run's identity: "2d" fans MoE-arch runs over the ``("data", "model")``
+    mesh (expert weights over "model") when the ranks and the geometry
+    allow; dense archs take the data mesh instead."""
     base = RunSpec(
         name="lm-smoke", method="SB", model=_f1_reduced(),
         data=DataSpec(seed=1), lm_arch=arch, lm_seq_len=32,

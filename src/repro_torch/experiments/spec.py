@@ -72,8 +72,8 @@ class RunSpec:
     weight_decay: float = 5e-4
     # mesh-topology selector: False/"" = single device; True or "data" =
     # the 1-D ("data",) mesh; "2d" = the ("data", "model") mesh. Part of
-    # the run's identity; the port runs every request on one device until
-    # the parallel slice (see experiments.runner._mesh_for).
+    # the run's identity; it fans over the torch.distributed ranks when
+    # there are several (see experiments.runner._mesh_for).
     use_mesh: Any = False
     # LM workload: set to a registry arch name to drive the LM trainer
     # instead of the vision one (model/data are then ignored)

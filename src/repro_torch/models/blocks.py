@@ -30,7 +30,15 @@ norm kernel and its shared expert in the SwiGLU kernel, as a dense block's
 do (the reference calls both plainly there; each kernel computes the same
 function, and no plain version runs on the card's kernel path).
 
-Tensor parallelism waits for its slice.
+Tensor parallelism (Megatron): inside
+:func:`repro_torch.core.expert_parallel.manual_mode` a block may receive
+this rank's slice of its attention projections (q/k/v columns and wo rows
+of its heads) or of its dense MLP (w_gate/w_up columns, w_down rows).
+:func:`_tp_axis` sees the slice from the leaf's shape, and the sublayer
+becomes one partial-sum region: ``region_in`` on everything replicated
+that enters it (the normed stream and the qk-norm scales), ``region_out``
+(the one sum over the model axis) on its output. A slice goes through the
+same kernels as the whole layer.
 """
 from __future__ import annotations
 
@@ -40,12 +48,24 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core import expert_parallel as EP
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
+
+
+def _tp_axis(local_dim: int, full_dim: int) -> Optional[str]:
+    """The model axis when a block inside a manual region holds a
+    tensor-parallel slice (its leaf's width ``local_dim`` short of the
+    config's ``full_dim``), else None: the same shape test as
+    :func:`EP.manual_shard_mode`, so it agrees with the spec builder."""
+    st = EP.manual_state()
+    if st is None or st.model_axis is None:
+        return None
+    return st.model_axis if local_dim != full_dim else None
 
 
 def _sum_aux(acc: Dict[str, Tensor], new: Dict[str, Tensor]
@@ -144,7 +164,21 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
         h = L.norm_apply(cfg, params["norm1"], x, use_kernels=use_kernels)
-        if cache is None:
+        ax = (_tp_axis(params["mixer"]["wq"].shape[-1],
+                       cfg.n_heads * cfg.head_dim) if cache is None else None)
+        if ax is not None:
+            # head-split qkv (column-parallel) and wo (row-parallel): one
+            # partial-sum region, the per-head qk-norm scales fenced too
+            mp = dict(params["mixer"])
+            for nk in ("q_norm", "k_norm"):
+                if nk in mp:
+                    mp[nk] = {**mp[nk],
+                              "scale": EP.region_in(mp[nk]["scale"], ax)}
+            y_mix = EP.region_out(
+                L.attention_full(mp, cfg, EP.region_in(h, ax), positions,
+                                 window=window, causal=causal,
+                                 use_kernels=use_kernels), ax)
+        elif cache is None:
             y_mix = L.attention_full(params["mixer"], cfg, h, positions,
                                      window=window, causal=causal,
                                      use_kernels=use_kernels)
@@ -187,7 +221,14 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
         else:
             h = L.norm_apply(cfg, params["norm2"], x,
                              use_kernels=use_kernels)
-        if spec.ff == "dense":
+        ax = (_tp_axis(params["ff"]["w_gate"].shape[-1], cfg.d_ff)
+              if spec.ff == "dense" and cache is None else None)
+        if ax is not None:
+            # column-parallel w_gate/w_up, row-parallel w_down
+            x = x + EP.region_out(
+                L.mlp_apply(params["ff"], EP.region_in(h, ax),
+                            use_kernels=use_kernels), ax)
+        elif spec.ff == "dense":
             x = x + L.mlp_apply(params["ff"], h, use_kernels=use_kernels)
         else:
             y, aux = MOE.moe_apply(params["ff"], cfg, h,

@@ -10,6 +10,12 @@ dispatch (the port of ``repro.models.moe``).
   a stable sort (never the (S*k, E) one-hot cumsum); ``slot >= C`` drops.
 - Dispatch and combine are :func:`repro_torch.core.expert_parallel.
   local_combine` with every expert local; the shared expert is added last.
+- Inside :func:`repro_torch.core.expert_parallel.manual_mode` (a train
+  step sharded over a mesh) with expert weights that hold this rank's
+  slice, dispatch and combine go through ``ep_manual_combine`` (one sum
+  over the model axis a layer), and the load-balance statistics f and P
+  are averaged over the data axes through ``mean_in_fwd``, because the
+  Switch loss is a product of means.
 - The load-balance loss is the Switch/GShard ``E * sum_e f_e * P_e``, the
   z-loss ``mean(logsumexp(logits)^2)``.
 
@@ -49,12 +55,14 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _route(router_w: Tensor, x: Tensor, m: MoEConfig, losses: bool = True
+def _route(router_w: Tensor, x: Tensor, m: MoEConfig, losses: bool = True,
+           dp_axes: Tuple[str, ...] = (), mesh=None
            ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
     """x: (B, S, d) -> (topi, topw (B, S, k), aux losses). The logits are an
     f32 product (TF32 is off, ``device.set_precision``); ``topk`` returns
     the largest first, as ``jax.lax.top_k``. ``losses=False`` computes no
-    loss and returns an empty dict for them."""
+    loss and returns an empty dict for them. ``dp_axes`` (inside a manual
+    region) makes f and P global over those axes of ``mesh``."""
     logits = x.float() @ router_w.float()                        # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, m.top_k, dim=-1, sorted=True)
@@ -64,6 +72,9 @@ def _route(router_w: Tensor, x: Tensor, m: MoEConfig, losses: bool = True
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     f = F.one_hot(topi[..., 0], m.n_experts).float().mean(dim=(0, 1))
     P = probs.mean(dim=(0, 1))
+    if dp_axes:
+        f = EP.mean_in_fwd(f, dp_axes, mesh)
+        P = EP.mean_in_fwd(P, dp_axes, mesh)
     aux = m.n_experts * torch.sum(f * P)
     z = torch.logsumexp(logits, dim=-1).square().mean()
     return topi, topw, {"moe_aux": aux, "moe_z": z}
@@ -101,10 +112,18 @@ def moe_apply(params: Params, cfg: ModelConfig, x: Tensor, *,
     decode = S0 == 1
     xr = x.reshape(1, B0, d) if decode else x   # decode pools over the batch
     C = m.tokens_capacity(xr.shape[1])
-    topi, topw, aux = _route(params["router"], xr, m, losses)
+    manual = EP.manual_state()
+    topi, topw, aux = _route(params["router"], xr, m, losses,
+                             *((manual.dp, manual.mesh) if manual else ()))
     slot, keep = _slots(topi, C)
-    y = EP.local_combine(xr, topi, topw, slot, keep, params["w_gate"],
-                         params["w_up"], params["w_down"], C)
+    mode = EP.manual_shard_mode(m, params) if manual else None
+    if mode is not None:
+        y = EP.ep_manual_combine(params, m, xr, topi, topw, slot, keep, C,
+                                 axis=manual.model_axis, mode=mode,
+                                 mesh=manual.mesh)
+    else:
+        y = EP.local_combine(xr, topi, topw, slot, keep, params["w_gate"],
+                             params["w_up"], params["w_down"], C)
     if decode:
         y = y.reshape(B0, S0, d)
     if m.n_shared_experts:

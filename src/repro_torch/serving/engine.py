@@ -324,8 +324,9 @@ class ContinuousEngine:
     no-op singleton.
 
     ``temperature > 0`` samples with ``generator`` (a ``torch.Generator``
-    on ``device``), else greedy. ``mesh=`` (model-sharded serving) comes
-    with the parallel slice and raises here. The engine runs on ``device``
+    on ``device``), else greedy. ``mesh=`` (model-sharded serving, with
+    the serving caches' specs) comes with the serving slice and raises
+    here. The engine runs on ``device``
     (the card unless told otherwise), where ``params`` must live.
     """
 
@@ -345,7 +346,7 @@ class ContinuousEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "ContinuousEngine(mesh=) (model-sharded serving) comes with "
-                "the parallel slice")
+                "the serving slice (launch/serve.py, rules.cache_specs)")
         if layout not in ("paged", "head", "seq"):
             raise ValueError(f"unknown layout {layout!r}")
         if temperature > 0.0 and generator is None:

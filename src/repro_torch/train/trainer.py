@@ -12,7 +12,9 @@ tree and returns a new tree (the reference's functional update); its
 metrics stay on the device until the loop fetches them in one transfer.
 Gradient noise draws from an explicit ``torch.Generator``. Both loops
 checkpoint and resume their run state (:mod:`repro_torch.checkpoint`) and
-report into ``obs=``; meshes come with the parallel slice.
+report into ``obs=``. With ``mesh=`` (:mod:`repro_torch.launch.mesh`, one
+process a rank) both loops take each step on this rank's rows through the
+sharded steps of :mod:`repro_torch.train.parallel`.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.core.diffusion import DiffusionTracker
 from repro_torch.core.large_batch import LargeBatchConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regime import BatchSchedule, Regime
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.device import (DeviceLike, process_index_count,
                                 resolve_device)
 from repro_torch.models import transformer as T
@@ -157,14 +160,17 @@ def _obs_step_metrics(reg, t0: float, mh: Dict[str, float],
 
 def _save_run_state(checkpoint_dir: str, step: int, params, bn_state,
                     opt_state, *, epoch: int, cursor: int,
-                    logger: MetricsLogger, tracker) -> None:
+                    logger: MetricsLogger, tracker, layout=None) -> None:
+    """``layout``: (mesh, param specs, optimizer specs) of sharded trees,
+    whose slices then carry their global index in the checkpoint."""
     extra: Dict[str, Any] = {"epoch": epoch, "cursor": cursor,
                              "metrics": logger.to_json()}
     if tracker is not None:
         extra["tracker"] = {"steps": list(tracker.steps),
                             "distances": list(tracker.distances)}
     ckpt.save(checkpoint_dir, step, params, opt_state, extra=extra,
-              bn_state=bn_state, sharded=process_index_count()[1] > 1)
+              bn_state=bn_state, sharded=process_index_count()[1] > 1,
+              layout=layout)
 
 
 def _restore_run_state(checkpoint_dir, params, opt_state, bn_state, tracker):
@@ -195,7 +201,7 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
                  batch_schedule: Optional[BatchSchedule] = None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0, resume: bool = True, obs=None,
-                 device: DeviceLike = None) -> Dict[str, Any]:
+                 mesh=None, device: DeviceLike = None) -> Dict[str, Any]:
     """Full training run; returns final/best accuracy + diffusion trace.
 
     Runs on the card unless ``device="cpu"``. The dataset moves to the
@@ -220,6 +226,12 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
     logger's series mirrored under ``train/``. With ``obs`` the loop
     fetches each step's metrics in one transfer inside its span, which
     makes the step time real; without it nothing is added to the loop.
+
+    ``mesh`` (a data mesh of the world's ranks, every rank calling
+    ``train_vision`` alike): each step takes this rank's rows of the batch
+    through the data-parallel step
+    (:func:`repro_torch.train.data_parallel.make_dp_vision_train_step`);
+    a batch larger than the dataset raises instead of being capped.
     """
     dev = resolve_device(device)
     init_fn, apply_fn = model_fns
@@ -233,9 +245,15 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
     reg = obs.registry if obs is not None else None
     if obs is not None:
         logger.attach_registry(obs.registry, prefix="train/")
-    step_fn = make_vision_train_step(apply_fn, cfg, lb, regime,
-                                     use_kernels=use_kernels,
-                                     weight_decay=weight_decay)
+    if mesh is not None:
+        from repro_torch.train.data_parallel import make_dp_vision_train_step
+        step_fn = make_dp_vision_train_step(apply_fn, cfg, lb, regime, mesh,
+                                            use_kernels=use_kernels,
+                                            weight_decay=weight_decay)
+    else:
+        step_fn = make_vision_train_step(apply_fn, cfg, lb, regime,
+                                         use_kernels=use_kernels,
+                                         weight_decay=weight_decay)
     evaluate = make_vision_eval(apply_fn, cfg)
     noise_gen = (torch.Generator(device=dev)
                  if lb.effective_noise_sigma() > 0 else None)
@@ -248,8 +266,14 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
     perm = _epoch_perm(seed, epoch, n, dev)
     best = logger.max("val_acc")
     while step < regime.total_steps:
-        b = min(batch_schedule.batch_at(step) if batch_schedule is not None
-                else lb.batch_size, n)
+        b = (batch_schedule.batch_at(step) if batch_schedule is not None
+             else lb.batch_size)
+        if b > n:
+            if mesh is not None:
+                # capping would break the divisibility the mesh was
+                # checked against at the configured batch size
+                raise ValueError(f"batch {b} > dataset {n} on a mesh run")
+            b = n
         if cursor + b > n:
             epoch += 1
             cursor = 0
@@ -258,10 +282,13 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
         cursor += b
         if noise_gen is not None:
             noise_gen.manual_seed(_stream_seed(seed, _NOISE, step))
+        xy = {"x": x_tr[idx], "y": y_tr[idx]}
+        if mesh is not None:
+            xy = shard_batch(xy, mesh)
         t0, mh = time.perf_counter(), None
         with tracer.span("train.step", step=step, batch=b):
             params, bn_state, opt_state, m = step_fn(
-                params, bn_state, opt_state, x_tr[idx], y_tr[idx], step,
+                params, bn_state, opt_state, xy["x"], xy["y"], step,
                 noise_gen)
             if reg is not None:
                 mh = _host_metrics(m)
@@ -304,11 +331,6 @@ def train_vision(model_fns, cfg: VisionModelConfig, data,
 # ---------------------------------------------------------------------------
 
 
-def _needs_parallel_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with the parallel slice "
-                               f"(train/parallel.py)")
-
-
 def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]
            ) -> List[torch.Tensor]:
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -318,9 +340,11 @@ def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]
 
 def make_lm_train_step(cfg: ModelConfig, lb: LargeBatchConfig,
                        regime: Regime, *, weight_decay: float = 0.0,
-                       use_kernels: bool = False, remat: bool = False,
+                       use_kernels: bool = False,
+                       momentum_dtype: str = "float32", remat: bool = False,
                        seq_parallel: bool = False, ce_chunk: int = 0,
-                       mesh=None, tp: bool = False, fsdp: bool = False,
+                       mesh=None, params: Optional[Params] = None,
+                       tp: bool = False, fsdp: bool = False,
                        optimizer: str = "sgd") -> Callable:
     """(params, opt_state, batch, step, generator=None) -> (params,
     opt_state, metrics): one step of the paper's recipe on an LM.
@@ -332,11 +356,28 @@ def make_lm_train_step(cfg: ModelConfig, lb: LargeBatchConfig,
     CUDA kernels and their backward kernels (autograd Functions);
     ``remat=True`` recomputes each block in the backward; ``ce_chunk``
     takes the vocab-chunked CE. ``optimizer`` is "sgd" (momentum, clipping,
-    the config's gradient noise from ``generator``; f32 momentum) or
-    "adam". ``mesh``, ``tp``, ``fsdp`` and ``seq_parallel`` raise: the
-    parallel slice."""
-    if mesh is not None or tp or fsdp or seq_parallel:
-        raise _needs_parallel_slice("mesh/tp/fsdp/seq_parallel LM training")
+    the config's gradient noise from ``generator``; momentum in
+    ``momentum_dtype``, "int8" the blockwise quantized form) or "adam".
+
+    With ``mesh`` the step runs sharded over the mesh's ranks
+    (:func:`repro_torch.train.parallel.make_mesh_lm_train_step`: batch
+    over the dp axes, MoE experts over "model", ``tp=True`` Megatron
+    attention/MLP, ``fsdp=True`` parameters and moments over the dp axes)
+    on this rank's slices; ``params`` (the whole tree the specs derive
+    from) is required then. ``seq_parallel`` is the reference's layout
+    hint and changes no value."""
+    if mesh is not None:
+        if params is None:
+            raise ValueError("mesh-sharded LM step needs the params "
+                             "tree to derive its specs")
+        from repro_torch.train.parallel import make_mesh_lm_train_step
+        return make_mesh_lm_train_step(
+            cfg, lb, regime, mesh, params, weight_decay=weight_decay,
+            use_kernels=use_kernels, momentum_dtype=momentum_dtype,
+            remat=remat, seq_parallel=seq_parallel, ce_chunk=ce_chunk,
+            tp=tp, fsdp=fsdp, optimizer=optimizer)
+    if tp or fsdp:
+        raise ValueError("tp/fsdp need a mesh")
     if optimizer not in ("sgd", "adam"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     sigma = lb.effective_noise_sigma()
@@ -360,7 +401,7 @@ def make_lm_train_step(cfg: ModelConfig, lb: LargeBatchConfig,
                 grads, opt_state, detached, lr=lr, momentum=lb.momentum,
                 nesterov=lb.nesterov, weight_decay=weight_decay,
                 grad_clip=lb.grad_clip, noise_sigma=sigma,
-                generator=generator)
+                generator=generator, momentum_dtype=momentum_dtype)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params2, opt_state2, {"loss": loss.detach(), "lr": lr,
                                      **metrics, **m}
@@ -402,24 +443,44 @@ def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
     (e.g. the reference's parameters carried across by
     :func:`repro_torch.convert.lm_to_torch`) instead of
     ``init_params(seed)``. Runs on the card unless ``device="cpu"``.
-    ``mesh`` raises (the parallel slice)."""
-    if mesh is not None:
-        raise _needs_parallel_slice("train_lm(mesh=)")
+
+    ``mesh`` (every rank of the world calling ``train_lm`` alike): each
+    step takes this rank's rows through the sharded step (MoE experts over
+    "model", the rest replicated), evaluations run on this rank's slices
+    with every holdout row, checkpoints are written a shard a rank, and
+    ``out["params"]`` is this rank's slices."""
     dev = resolve_device(device)
     if params is None:
         params = T.init_params(seed, cfg, dev)
+    step_fn = make_lm_train_step(cfg, lb, regime, weight_decay=weight_decay,
+                                 use_kernels=use_kernels, mesh=mesh,
+                                 params=params if mesh is not None else None)
     opt_state = sgd.init(params)
-    tracker = DiffusionTracker(params) if track_diffusion else None
+    if mesh is None:
+        layout = None
+        eval_fn = make_lm_eval_step(cfg, use_kernels=use_kernels)
+        tracker = DiffusionTracker(params) if track_diffusion else None
+    else:
+        from repro_torch.train import parallel as PAR
+        pspecs, ospecs = step_fn.param_specs, step_fn.opt_specs
+        layout = (mesh, pspecs, ospecs)
+        eval_fn = PAR.make_mesh_lm_eval_step(cfg, mesh,
+                                             use_kernels=use_kernels)
+        tracker = (DiffusionTracker(
+            PAR.shard_tree(mesh, params, pspecs),
+            norm=lambda t: PAR.sharded_global_norm(t, pspecs, mesh))
+            if track_diffusion else None)
+    # restored whole, then sliced
     params, opt_state, _, step, epoch, cursor, logger = \
         _restore_run_state(checkpoint_dir if resume else None,
                            params, opt_state, None, tracker)
+    if mesh is not None:
+        params = PAR.shard_tree(mesh, params, pspecs)
+        opt_state = PAR.shard_tree(mesh, opt_state, ospecs)
     tracer = obs.tracer if obs is not None else NULL_TRACER
     reg = obs.registry if obs is not None else None
     if obs is not None:
         logger.attach_registry(obs.registry, prefix="train/")
-    step_fn = make_lm_train_step(cfg, lb, regime, weight_decay=weight_decay,
-                                 use_kernels=use_kernels)
-    eval_fn = make_lm_eval_step(cfg, use_kernels=use_kernels)
     noise_gen = (torch.Generator(device=dev)
                  if lb.effective_noise_sigma() > 0 else None)
 
@@ -454,10 +515,12 @@ def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
         cursor += b
         if noise_gen is not None:
             noise_gen.manual_seed(_stream_seed(seed, _NOISE, step))
+        batch = {"tokens": train_rows[idx]}
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         t0, mh = time.perf_counter(), None
         with tracer.span("train.step", step=step, batch=b):
-            params, opt_state, m = step_fn(params, opt_state,
-                                           {"tokens": train_rows[idx]}, step,
+            params, opt_state, m = step_fn(params, opt_state, batch, step,
                                            noise_gen)
             if reg is not None:
                 mh = _host_metrics(m)
@@ -480,7 +543,7 @@ def train_lm(cfg: ModelConfig, lb: LargeBatchConfig, regime: Regime,
                 and step < regime.total_steps):
             _save_run_state(checkpoint_dir, step, params, None, opt_state,
                             epoch=epoch, cursor=cursor, logger=logger,
-                            tracker=tracker)
+                            tracker=tracker, layout=layout)
     final_ce = eval_ce()
     if tracker is not None:
         logger.set_series("distance", tracker.steps, tracker.distances)

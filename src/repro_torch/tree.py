@@ -27,6 +27,8 @@ def unflatten(like: Tree, flat: List[Any]) -> Tree:
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):   # NamedTuple
+            return type(t)(*(build(x) for x in t))
         if isinstance(t, (list, tuple)):
             return type(t)(build(x) for x in t)
         if t is None:

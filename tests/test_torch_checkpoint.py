@@ -9,7 +9,8 @@ second stack, here deeper than the decoder's, and whose blocks hold the
 ``norm_x``/``cross`` leaves) written by either
 package restore in the other bit for bit; the port reads the JAX package's
 sharded files (one process, and pieces of two processes); the meta and the
-``latest`` pointer; a missing checkpoint, ``sharded=True`` and an unknown
+``latest`` pointer; a one-process ``sharded=True`` save (the multi-rank
+one: tests/test_torch_parallel.py); a missing checkpoint and an unknown
 kind raise."""
 import dataclasses
 import json
@@ -219,8 +220,13 @@ def test_save_layout_meta_and_errors(tmp_path):
     with pytest.raises(FileNotFoundError):
         ckpt.load_meta(str(tmp_path))
     assert ckpt.latest_step(str(tmp_path)) is None
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        ckpt.save(str(tmp_path), 1, params, sharded=True)
+    one = tmp_path / "one_process_sharded"
+    ckpt.save(str(one), 5, params, sharded=True)
+    assert (one / "params_5.shard0.npz").exists()
+    assert ckpt.load_meta(str(one)) == {"step": 5, "sharded": True,
+                                        "num_processes": 1}
+    got, _ = ckpt.restore(str(one), params)
+    assert torch.equal(got["w"], params["w"])
     ckpt.save(str(tmp_path), 1, params, extra={"cursor": 8})
     ckpt.save(str(tmp_path), 2, params, extra={"cursor": 16})
     assert ckpt.latest_step(str(tmp_path)) == 2

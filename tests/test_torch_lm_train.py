@@ -31,6 +31,7 @@ from repro_torch import convert, tree
 from repro_torch.configs import LayerSpec, get_config
 from repro_torch.core import LargeBatchConfig, Regime
 from repro_torch.data import lm_sequences, token_lm
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as TT
 from repro_torch.optim import adam, sgd
 from repro_torch.train import trainer as TR
@@ -282,18 +283,28 @@ def test_noise_path_runs(model):
 
 
 def test_unported_options_raise(model):
+    """The mesh options' errors, as the reference's: a mesh needs the
+    params tree, tp/fsdp need a mesh; ``seq_parallel`` is a layout hint
+    (accepted). ``train_lm`` over the one-process host mesh takes the
+    plain run's steps (tests/test_torch_parallel.py holds the multi-rank
+    ones)."""
     _, tcfg, _, tp = model
     lb = LargeBatchConfig(batch_size=2, base_batch_size=2)
     reg = Regime(base_lr=0.01, total_steps=2, drop_every=2)
-    for kw in ({"mesh": object()}, {"tp": True}, {"fsdp": True},
-               {"seq_parallel": True}):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
+    for kw, match in (({"mesh": object()}, "needs the params"),
+                      ({"tp": True}, "need a mesh"),
+                      ({"fsdp": True}, "need a mesh")):
+        with pytest.raises(ValueError, match=match):
             TR.make_lm_train_step(tcfg, lb, reg, **kw)
+    TR.make_lm_train_step(tcfg, lb, reg, seq_parallel=True)
     with pytest.raises(ValueError):
         TR.make_lm_train_step(tcfg, lb, reg, optimizer="lion")
-    rows = np.zeros((2, 9), np.int32)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        TR.train_lm(tcfg, lb, reg, rows, mesh=object(), device=CPU)
+    rows = np.random.RandomState(11).randint(0, tcfg.vocab_size, (2, 9))
+    runs = [TR.train_lm(tcfg, lb, reg, rows, params=tp, mesh=mesh,
+                        eval_every=1, device=CPU)["history"]["train_loss"]
+            for mesh in (None, make_host_mesh(CPU))]
+    assert len(runs[0]) == 2
+    _close(np.asarray(runs[1]), np.asarray(runs[0]), 1e-6)
     ev = TR.make_lm_eval_step(tcfg)(tp, {"tokens": torch.tensor(
         _batch(tcfg.vocab_size, seed=10))})
     assert ev.shape == () and torch.isfinite(ev)
