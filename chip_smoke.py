@@ -53,7 +53,15 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    CHUNK, CHUNK + 1 and 2 CHUNK against the plain version (f32 and bf16
    caches, with offsets and RoPE, with a window), a cache of S = 544
    against the same contents padded to S = 1024 bit for bit, and the rows
-   of batches of 1, 8 and 16 bit-equal to their solo runs;
+   of batches of 1, 8 and 16 bit-equal to their solo runs; the norm at
+   every width of NORM_WIDTHS (1024 to 8192) in bf16 at 1, 8 and 4096
+   rows, with and without the residual, at (17, 128), (5, 100) and
+   (300, 7) in f32 and on unaligned views; at 4096 rows two calls
+   bit-equal and NORM_INVARIANT_ROWS bit-equal to their solo calls (y and
+   s), and the CUDA-events ms a call at each width beside its bound; the
+   (4096, 2048) call also by CUDA events and the (1, 128) call's device
+   time (the kernel's fixed cost); every norm timing but the fixed cost
+   goes round copies of its inputs past the L2 (``input_copies``);
 7. full-width qwen3-1.7b ``generate`` in bf16 (random weights from
    SERVE_SEED): B=8 left-padded prompts of width 512 (PROMPT_LENS),
    greedy, 32 new tokens. The launch counters must show 28
@@ -110,7 +118,11 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    rows bit-equal to their solo and 8-row runs); each autograd
    Function's gradients against plain autograd through the plain forward;
    device times of kernel, plain version and one library call (CUDA
-   events), and the bound;
+   events), and the bound; the norm backward also at (300, 7) and (64,
+   8192) in f32 (the stream body, also timed at 4096 rows) and on
+   unaligned views, its (8, 2048) call's device time, and at every width
+   as phase 6's forward (dx; dscale relative to its largest entry; two
+   calls bit-equal in dx and dscale);
 13. full-width qwen3-1.7b training in bf16 (random weights from
    SERVE_SEED, f32 momentum): make_lm_train_step(use_kernels=True) on B=8
    rows of T=512 from token_lm, one warm and five timed steps on the same
@@ -307,7 +319,10 @@ device ms and launches in the profiled generate, engine run and train
 step of phases 21–23; the line after it slice 8's (phases 25–29), then
 slice 9's (phases 31–33: launches a step on a rank and each rank's device
 ms in its profiled step). Times of ranks that share one card are not
-scaling numbers.
+scaling numbers. The norm widths line after them gives B3's and B4's
+CUDA-events ms a call at 4096 rows of each width of NORM_WIDTHS beside
+their bounds, each call's inputs read from device memory
+(``input_copies``).
 The second-to-last line is a JSON object with one entry per kernel (GBN
 per ResNet44 step, the static serving kernels per ``generate``, with a
 bound that sums the prefill calls' and the decode calls' own bounds; the paged
@@ -342,6 +357,7 @@ TOL = 1e-4               # as tests/test_kernels.py holds the Pallas kernels
 LOSS_TOL = 1e-5          # as the reference's train-step equivalence tests
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+ROTATE_BYTES = 3 * 50 * 2 ** 20   # inputs a timing goes round: 3 x the L2
 BATCH, GHOST = 4096, 128
 STEPS = 5
 # GBN (G, R, C) per ResNet44 layer at B=4096, ghost 128: the stem and the
@@ -424,6 +440,53 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """As ``time_ms``, with the calls queued behind a sleep kernel, so the
+    device runs them back to back however slowly the host issues them (a
+    norm wrapper's host time is tens of microseconds a call, more than its
+    kernels' at many shapes)."""
+    import torch
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)        # ~10 ms at the H100's clocks
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def input_copies(*args):
+    """[args] and clones of the tensors ``args``: enough copies to pass
+    ROTATE_BYTES, three times the H100's 50 MB L2, so that a call timed on
+    them in turn (``rotating``) reads its inputs from device memory, as its
+    byte bound counts them, and not from the L2 that the call before left
+    warm."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    n = max(2, min(64, math.ceil(ROTATE_BYTES / nbytes)))
+    return [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+
+
+def rotating(fn, inputs):
+    """A zero-argument call that runs ``fn`` on the next tuple of
+    ``inputs`` in turn. Each tuple's last result is held until its next
+    turn, so the outputs go round as many buffers as the inputs. Each
+    tuple runs once here, so that the allocator holds every buffer before
+    a timing starts (a first pass that allocates inside queued events
+    starved the device behind the host)."""
+    held = [fn(*args) for args in inputs]
+    turn = itertools.cycle(range(len(inputs)))
+
+    def call():
+        i = next(turn)
+        held[i] = fn(*inputs[i])
+    return call
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -1056,6 +1119,94 @@ def norm_work(N, d, esize=2, residual=True):
         F32_FLOPS
 
 
+# B3 and B4 are checked at every width of the repo's configs (1024 to
+# 5376, kimi-k2's 7168) and at MAX_D, in bf16, at one row, a decode batch
+# and a prefill or train step; rows of a 4096-row call held to their solo
+# calls: the ends of warps and of 32-row runs, and the last row
+NORM_WIDTHS = (1024, 2048, 3840, 4096, 5120, 5376, 7168, 8192)
+NORM_ROWS = (1, 8, 4096)
+NORM_INVARIANT_ROWS = (0, 1, 7, 31, 32, 63, 4095)
+
+
+def norm_widths(backward, record, record_sum=None):
+    """B3 (``backward`` False) or B4 against its plain version at every
+    NORM_WIDTHS x NORM_ROWS in bf16, with and without the residual (BF16_TOL;
+    dscale relative to its largest entry); at 4096 rows with the residual,
+    two calls bit-equal and the NORM_INVARIANT_ROWS bit-equal to their solo
+    calls (y and s; dx), and the CUDA-events ms a call (``queued_ms``,
+    going round copies of the inputs past the L2: ``input_copies``) beside
+    the bound.
+    Returns {d: {"ms", "bound_ms", "plan"}}."""
+    import torch
+    from repro_torch.kernels import fused_norm as FN
+    from repro_torch.kernels import launch as L
+    from repro_torch.kernels import ref
+    name = "rmsnorm_residual_backward" if backward else "rmsnorm_residual"
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    sms = L.sm_count(torch.cuda.current_device())
+    times = {}
+    for d in NORM_WIDTHS:
+        scale = torch.linspace(0.5, 1.5, d, device="cuda")
+        for N in NORM_ROWS:
+            a, b, c = (torch.randn(N, d, generator=gen, device="cuda")
+                       .bfloat16() for _ in range(3))
+            for res in (True, False):
+                label = f"({N}, {d}) bf16{'' if res else ' no residual'}"
+                if backward:
+                    dsv = c if res else None
+                    dx, dsc = FN.rmsnorm_residual_backward(a, scale, b, dsv)
+                    rdx, rdsc = ref.rmsnorm_residual_backward_ref(a, scale, b,
+                                                                  dsv)
+                    record(name, label + " dx", dx, rdx, BF16_TOL)
+                    record_sum(name, label + " dscale", dsc, rdsc, BF16_TOL)
+                else:
+                    rv = b if res else None
+                    record(name, label,
+                           torch.cat(FN.rmsnorm_residual(a, rv, scale)),
+                           torch.cat(ref.rmsnorm_residual_ref(a, rv, scale)),
+                           BF16_TOL)
+        if backward:            # a, b, c: the 4096-row inputs
+            first = FN.rmsnorm_residual_backward(a, scale, b, c)
+            again = FN.rmsnorm_residual_backward(a, scale, b, c)
+            if not (first[0].equal(again[0]) and first[1].equal(again[1])):
+                raise AssertionError(f"{name} d={d}: two calls differ")
+            check_rows_solo(
+                f"{name} d={d} dx",
+                lambda s_, dy_, ds_: FN.rmsnorm_residual_backward(
+                    s_, scale, dy_, ds_)[:1],
+                (a, b, c), (0, 1, 2), NORM_INVARIANT_ROWS)
+            ms = queued_ms(rotating(
+                lambda s_, dy_, ds_: FN.rmsnorm_residual_backward(
+                    s_, scale, dy_, ds_), input_copies(a, b, c)))
+            bms = bound(*norm_bwd_work(N, d))[0]
+        else:
+            check_rows_solo(
+                f"{name} d={d} y, s",
+                lambda x_, r_: FN.rmsnorm_residual(x_, r_, scale),
+                (a, b), (0, 1), NORM_INVARIANT_ROWS)
+            ms = queued_ms(rotating(
+                lambda x_, r_: FN.rmsnorm_residual(x_, r_, scale),
+                input_copies(a, b)))
+            bms = bound(*norm_work(N, d))[0]
+        p = FN.plan(N, d, sms, backward=backward)
+        times[d] = {"ms": ms, "bound_ms": bms,
+                    "plan": f"{p.body} {p.warps}w K{p.per_lane} "
+                            f"{p.teams_per_block}t x {p.blocks}b"}
+        log(f"  {name} ({N}, {d}) bf16: {ms:.4f} ms a call (events), bound "
+            f"{bms:.4f} ({bms / ms:.2f} of it); plan {times[d]['plan']}")
+        del a, b, c
+    return times
+
+
+def norm_width_line(fwd, bwd):
+    """The per-width ms a call of B3 and B4 at 4096 rows (bf16, residual)."""
+    return ("norm widths (4096 rows bf16, residual; events ms a call / "
+            "bound): " + ", ".join(
+                f"d={d} B3 {fwd[d]['ms']:.4f}/{fwd[d]['bound_ms']:.4f} B4 "
+                f"{bwd[d]['ms']:.4f}/{bwd[d]['bound_ms']:.4f}"
+                for d in NORM_WIDTHS))
+
+
 def swiglu_work(N, d, F, esize=2):
     # read x, wg, wu; write h, g; two products of 2 N d F
     return esize * (N * d + 2 * d * F + 2 * N * F), 4.0 * N * d * F, \
@@ -1126,25 +1277,54 @@ def phase_serving_kernels():
         record("rmsnorm_residual", f"({N}, {d}) bf16",
                torch.cat(FN.rmsnorm_residual(x, r, scale)),
                torch.cat(ref.rmsnorm_residual_ref(x, r, scale)), BF16_TOL)
+        xr, xs = input_copies(x, r), input_copies(x)
         timed("rmsnorm_residual", N,
-              lambda: FN.rmsnorm_residual(x, r, scale),
-              lambda: ref.rmsnorm_residual_ref(x, r, scale),
-              lambda: F.rms_norm(x + r, (d,), scale_bf, 1e-6),
+              rotating(lambda x, r: FN.rmsnorm_residual(x, r, scale), xr),
+              rotating(lambda x, r: ref.rmsnorm_residual_ref(x, r, scale),
+                       xr),
+              rotating(lambda x, r: F.rms_norm(x + r, (d,), scale_bf, 1e-6),
+                       xr),
               norm_work(N, d))
         # no residual: each layer's pre-attention norm and the final norm
         record("rmsnorm_residual", f"({N}, {d}) bf16 no residual",
                FN.rmsnorm_residual(x, None, scale)[0],
                ref.rmsnorm_residual_ref(x, None, scale)[0], BF16_TOL)
         timed("rmsnorm_residual", (N, "no residual"),
-              lambda: FN.rmsnorm_residual(x, None, scale),
-              lambda: ref.rmsnorm_residual_ref(x, None, scale),
-              lambda: F.rms_norm(x, (d,), scale_bf, 1e-6),
+              rotating(lambda x: FN.rmsnorm_residual(x, None, scale), xs),
+              rotating(lambda x: ref.rmsnorm_residual_ref(x, None, scale),
+                       xs),
+              rotating(lambda x: F.rms_norm(x, (d,), scale_bf, 1e-6), xs),
               norm_work(N, d, residual=False))
-    x, r = randn(17, 128, dt=torch.float32), randn(17, 128, dt=torch.float32)
+        del xr, xs
+    # (4096, 2048) also by CUDA events, the (1, 128) call's device time
+    # (the kernel's fixed cost, beside which decode calls are read)
+    x, r = randn(P * B, d), randn(P * B, d)
+    out["rmsnorm_residual"]["events_ms"] = queued_ms(rotating(
+        lambda x, r: FN.rmsnorm_residual(x, r, scale), input_copies(x, r)))
+    x, r = randn(1, 128), randn(1, 128)
     s128 = torch.linspace(0.5, 1.5, 128, device="cuda")
-    record("rmsnorm_residual", "(17, 128) f32",
-           torch.cat(FN.rmsnorm_residual(x, r, s128)),
-           torch.cat(ref.rmsnorm_residual_ref(x, r, s128)), TOL)
+    timed("rmsnorm_residual", "fixed cost (1, 128)",
+          lambda: FN.rmsnorm_residual(x, r, s128),
+          lambda: ref.rmsnorm_residual_ref(x, r, s128),
+          lambda: F.rms_norm(x + r, (128,), s128.bfloat16(), 1e-6),
+          norm_work(1, 128))
+    # the small f32 shapes, widths off the 16-byte chunk and an unaligned
+    # view (the scalar path)
+    for n_, d_ in ((17, 128), (5, 100), (300, 7)):
+        x, r = (randn(n_, d_, dt=torch.float32) for _ in range(2))
+        sc_ = torch.linspace(0.5, 1.5, d_, device="cuda")
+        for rv in (r, None):
+            record("rmsnorm_residual", f"({n_}, {d_}) f32"
+                   + ("" if rv is not None else " no residual"),
+                   torch.cat(FN.rmsnorm_residual(x, rv, sc_)),
+                   torch.cat(ref.rmsnorm_residual_ref(x, rv, sc_)), TOL)
+    flat = randn(4 * 256 + 1)
+    x, r = flat[1:].view(4, 256), flat[:-1].view(4, 256)
+    record("rmsnorm_residual", "(4, 256) bf16 unaligned views",
+           torch.cat(FN.rmsnorm_residual(x, r, scale[:256])),
+           torch.cat(ref.rmsnorm_residual_ref(x, r, scale[:256])), BF16_TOL)
+    out["rmsnorm_residual"]["widths"] = norm_widths(False, record)
+    del x, r, flat
 
     # swiglu -------------------------------------------------------------------
     log("kernel check swiglu")
@@ -1230,10 +1410,6 @@ def phase_serving_kernels():
     caches = [(k, v)] + [(randn(B, KV, S, hd), randn(B, KV, S, hd))
                          for _ in range(DECODE_CACHES - 1)]
 
-    def rotating(fn):
-        turn = itertools.cycle(caches)
-        return lambda: fn(*next(turn))
-
     for pos in (first, last):
         vis = [pos - (P - L) + 1 for L in PROMPT_LENS]
         slots = torch.arange(S, device="cuda")
@@ -1243,12 +1419,13 @@ def phase_serving_kernels():
                              theta).bfloat16()[:, :, None]
         timed("flash_decode", pos,
               rotating(lambda k_, v_, p=pos: FD.flash_decode(
-                  q, k_, v_, p, offsets=off, rope_theta=theta)),
+                  q, k_, v_, p, offsets=off, rope_theta=theta), caches),
               rotating(lambda k_, v_, p=pos: ref.flash_decode_ref(
-                  q, k_, v_, p, offsets=off, rope_theta=theta)),
+                  q, k_, v_, p, offsets=off, rope_theta=theta), caches),
               rotating(lambda k_, v_, qr=qr, m=dmask:
                        F.scaled_dot_product_attention(
-                           qr, k_, v_, attn_mask=m, enable_gqa=True)),
+                           qr, k_, v_, attn_mask=m, enable_gqa=True),
+                       caches),
               decode_work(B, H, KV, hd, vis), rounds=DECODE_ROUNDS)
         warm = [kernel_ms(lambda p=pos: FD.flash_decode(
             q, k, v, p, offsets=off, rope_theta=theta))
@@ -1838,10 +2015,6 @@ def phase_paged_timing(states):
         (kq, ks), (vq, vs) = ref.quantize_slots(kp), ref.quantize_slots(vp)
         pools.append((kp, vp, pt, kq, ks, vq, vs))
 
-    def rotating(fn):
-        turn = itertools.cycle(pools)
-        return lambda: fn(*next(turn))
-
     def functions(pos):
         qr = ref.rope_rotate(q, pos[:, None].long().expand(B, H),
                              theta).bfloat16()[:, :, None]
@@ -1857,15 +2030,16 @@ def phase_paged_timing(states):
 
         return {
             "ms": rotating(lambda kp, vp, pt, *_: FD.flash_decode_paged(
-                q, kp, vp, pt, pos, rope_theta=theta)),
+                q, kp, vp, pt, pos, rope_theta=theta), pools),
             "int8_ms": rotating(lambda kp, vp, pt, kq, ks, vq, vs:
                                 FD.flash_decode_paged(
                                     q, kq, vq, pt, pos, k_scale=ks,
-                                    v_scale=vs, rope_theta=theta)),
+                                    v_scale=vs, rope_theta=theta), pools),
             "plain_ms": rotating(lambda kp, vp, pt, *_:
                                  ref.flash_decode_paged_ref(
-                                     q, kp, vp, pt, pos, rope_theta=theta)),
-            "library_ms": rotating(library)}
+                                     q, kp, vp, pt, pos, rope_theta=theta),
+                                 pools),
+            "library_ms": rotating(library, pools)}
 
     fns = [functions(torch.tensor(p, device="cuda", dtype=torch.int32))
            for p in states]
@@ -2460,34 +2634,77 @@ def phase_train_kernels():
     log(f"kernel check {name}")
     scale = torch.linspace(0.5, 1.5, d, device="cuda")
     s, dy, ds = (randn(N, d) for _ in range(3))
+    def graph(s_, dy_):
+        # F.rms_norm's forward, whose backward is timed again and again
+        sg = s_.detach().requires_grad_(True)
+        wg_ = scale.bfloat16().requires_grad_(True)
+        return F.rms_norm(sg, (d,), wg_, 1e-6), sg, wg_, dy_
+
     for key, dsv in (("residual", ds), ("no residual", None)):
         dx, dsc = FN.rmsnorm_residual_backward(s, scale, dy, dsv)
         rdx, rdsc = ref.rmsnorm_residual_backward_ref(s, scale, dy, dsv)
         record(name, f"({N}, {d}) bf16 {key} dx", dx, rdx, BF16_TOL)
         record_sum(name, f"({N}, {d}) bf16 {key} dscale", dsc, rdsc,
                    BF16_TOL)
-        sg = s.detach().requires_grad_(True)
-        wg_ = scale.bfloat16().requires_grad_(True)
-        yl = F.rms_norm(sg, (d,), wg_, 1e-6)
-        timed(name, key,
-              lambda dsv=dsv: FN.rmsnorm_residual_backward(s, scale, dy, dsv),
-              lambda dsv=dsv: ref.rmsnorm_residual_backward_ref(s, scale, dy,
-                                                                dsv),
-              lambda yl=yl, sg=sg, wg_=wg_: torch.autograd.grad(
-                  yl, (sg, wg_), dy, retain_graph=True),
-              norm_bwd_work(N, d, residual=dsv is not None))
-        del sg, wg_, yl
+        # queued CUDA events: the wrapper's host time is more than the
+        # kernels' at this shape
+        ins = input_copies(s, dy, *(() if dsv is None else (dsv,)))
+        graphs = [graph(s_, dy_) for s_, dy_, *_ in ins]
+        out[name][key] = time_row(
+            name, key,
+            rotating(lambda s_, dy_, ds_=None: FN.rmsnorm_residual_backward(
+                s_, scale, dy_, ds_), ins),
+            rotating(lambda s_, dy_, ds_=None:
+                     ref.rmsnorm_residual_backward_ref(s_, scale, dy_, ds_),
+                     ins),
+            rotating(lambda yl, sg, wg_, dy_: torch.autograd.grad(
+                yl, (sg, wg_), dy_, retain_graph=True), graphs),
+            norm_bwd_work(N, d, residual=dsv is not None), timer=queued_ms)
+        del ins, graphs
+    # a decode-sized call's device time (profiler)
+    s8, dy8, ds8 = (randn(8, d) for _ in range(3))
+    sg8 = s8.detach().requires_grad_(True)
+    wg8 = scale.bfloat16().requires_grad_(True)
+    yl8 = F.rms_norm(sg8, (d,), wg8, 1e-6)
+    out[name]["(8, 2048)"] = time_row(
+        name, (8, d), lambda: FN.rmsnorm_residual_backward(s8, scale, dy8, ds8),
+        lambda: ref.rmsnorm_residual_backward_ref(s8, scale, dy8, ds8),
+        lambda: torch.autograd.grad(yl8, (sg8, wg8), dy8, retain_graph=True),
+        norm_bwd_work(8, d))
+    # small f32 shapes, widths off the 16-byte chunk, the stream body (f32
+    # rows past 4096) and an unaligned view (the scalar path)
+    flat = randn(3 * 4 * 256 + 1)
+    views = tuple(flat[1 + 1024 * i:1 + 1024 * (i + 1)].view(4, 256)
+                  for i in range(3))
     for (n_, d_), res in (((17, 128), True), ((33, 256), False),
-                          ((5, 100), True)):
-        s2, dy2, ds2 = (randn(n_, d_, dt=torch.float32) for _ in range(3))
-        sc2 = torch.linspace(0.5, 1.5, d_, device="cuda")
+                          ((5, 100), True), ((300, 7), True),
+                          ((300, 7), False), ((64, 8192), True),
+                          ((64, 8192), False), ((4, 256), True)):
+        if (n_, d_) == (4, 256):
+            s2, dy2, ds2 = views
+            sc2, tol = scale[:256], BF16_TOL
+            label = "(4, 256) bf16 unaligned views"
+        else:
+            s2, dy2, ds2 = (randn(n_, d_, dt=torch.float32)
+                            for _ in range(3))
+            sc2, tol = torch.linspace(0.5, 1.5, d_, device="cuda"), tol32
+            label = f"({n_}, {d_}) f32{'' if res else ' no residual'}"
         ds2 = ds2 if res else None
         got = FN.rmsnorm_residual_backward(s2, sc2, dy2, ds2)
         want = ref.rmsnorm_residual_backward_ref(s2, sc2, dy2, ds2)
-        label = f"({n_}, {d_}) f32{'' if res else ' no residual'}"
-        record(name, label + " dx", got[0], want[0], tol32)
-        record_sum(name, label + " dscale", got[1], want[1], tol32)
-    del s, dy, ds
+        record(name, label + " dx", got[0], want[0], tol)
+        record_sum(name, label + " dscale", got[1], want[1], tol)
+    # the stream body at a train step's rows, by CUDA events
+    s2, dy2, ds2 = (randn(N, 8192, dt=torch.float32) for _ in range(3))
+    sc2 = torch.linspace(0.5, 1.5, 8192, device="cuda")
+    ms = queued_ms(rotating(
+        lambda s_, dy_, ds_: FN.rmsnorm_residual_backward(s_, sc2, dy_, ds_),
+        input_copies(s2, dy2, ds2)), reps=20)
+    out[name]["stream (4096, 8192) f32"] = ms
+    log(f"  {name} ({N}, 8192) f32 (stream body): {ms:.4f} ms a call "
+        f"(events), bound {bound(*norm_bwd_work(N, 8192, esize=4))[0]:.4f}")
+    del s, dy, ds, s2, dy2, ds2, s8, dy8, ds8, sg8, wg8, yl8, flat, views
+    out[name]["widths"] = norm_widths(True, record, record_sum)
 
     # B6: swiglu backward ------------------------------------------------------
     name = "swiglu_backward"
@@ -5949,6 +6166,8 @@ def main() -> int:
     moe_summary(moe_serve, moe_engine, moe_train)
     memory_summary(memory_runs)
     mesh_kernel_line(mesh_dp, mesh_lm, mesh_ep)
+    log(norm_width_line(kern["rmsnorm_residual"]["widths"],
+                        train_kern["rmsnorm_residual_backward"]["widths"]))
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s after start-up"
         f" (seconds by part: {took})")
     log(smi)

@@ -24,12 +24,12 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+from ab_rounds import run_rounds, smi_line
+
 B, T, LR, SEED, DATA_SEED = 8, 512, 0.5, 0, 5
 ARCH = "qwen3-1.7b"
 
@@ -79,16 +79,6 @@ def worker(src: str, steps: int) -> dict:
             "losses": losses}
 
 
-def smi_line() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-    except (OSError, subprocess.SubprocessError) as e:
-        return f"nvidia-smi failed: {e}"
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("srcs", nargs="+", help="directories holding repro_torch")
@@ -99,19 +89,8 @@ def main() -> int:
     if args.worker:
         print(json.dumps(worker(args.srcs[0], args.steps)), flush=True)
         return 0
-    runs = {s: [] for s in args.srcs}
-    for r in range(args.rounds):
-        for src in (args.srcs if r % 2 == 0 else args.srcs[::-1]):
-            out = subprocess.run(
-                [sys.executable, __file__, "--worker", "--steps",
-                 str(args.steps), src], capture_output=True, text=True,
-                cwd=ROOT, timeout=1800)
-            if out.returncode != 0:
-                sys.stderr.write(out.stderr[-4000:])
-                raise SystemExit(f"{src}: exit {out.returncode}")
-            line = out.stdout.strip().splitlines()[-1]
-            print(line, flush=True)
-            runs[src].append(json.loads(line))
+    runs = run_rounds(__file__, args.srcs, args.rounds,
+                      ["--steps", str(args.steps)], timeout=1800)
     summary = {s: {"median_host_ms": statistics.median(
                        x["median_host_ms"] for x in rs),
                    "median_event_ms": statistics.median(

@@ -9,7 +9,8 @@ and probes the loss's spread against the distance on random rays
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -129,31 +130,36 @@ def random_potential_probe(loss_fn: Callable[[Any], Any], params0: Any,
     ~ U[0, max_radius]); estimate std(L(w) - L(w0)) per distance bin.
     Under the alpha=2 random-potential model the std grows ~ linearly with
     distance. The draws come from ``generator`` (each sample a standard
-    normal direction per leaf, then z); :func:`_probe_from_draws` does the
-    rest."""
+    normal direction per leaf, then z), one sample at a time:
+    :func:`_probe_from_draws` turns each into its loss change and drops it
+    before the next is drawn, so the probe holds one direction (one copy of
+    the parameters) at a time."""
     leaves = tree.leaves(params0)
-    dirs, zs = [], []
-    for _ in range(n_samples):
-        dirs.append([torch.randn(l.shape, generator=generator,
-                                 device=l.device) for l in leaves])
-        zs.append(float(torch.rand((), generator=generator,
-                                   device=leaves[0].device)) * max_radius)
-    return _probe_from_draws(loss_fn, params0, dirs, zs,
-                            max_radius=max_radius, n_bins=n_bins)
+
+    def draws():
+        for _ in range(n_samples):
+            yield ([torch.randn(l.shape, generator=generator, device=l.device)
+                    for l in leaves],
+                   float(torch.rand((), generator=generator,
+                                    device=leaves[0].device)) * max_radius)
+
+    return _probe_from_draws(loss_fn, params0, draws(),
+                             max_radius=max_radius, n_bins=n_bins)
 
 
 def _probe_from_draws(loss_fn: Callable[[Any], Any], params0: Any,
-                     dirs: Sequence[Sequence[Any]], zs: Sequence[float], *,
-                     max_radius: float = 10.0, n_bins: int = 10
-                     ) -> Dict[str, np.ndarray]:
-    """The probe from given draws: ``dirs[i]`` one direction per leaf of
-    ``params0`` (tensors or numpy, :func:`tree.leaves` order), ``zs[i]``
-    its distance. Bins with at least 3 samples report the RMS loss change
-    at their center."""
+                      draws: Iterable[Tuple[Sequence[Any], float]], *,
+                      max_radius: float = 10.0, n_bins: int = 10
+                      ) -> Dict[str, np.ndarray]:
+    """The probe from given draws: pairs (direction, z), the direction one
+    tensor or numpy array per leaf of ``params0`` (:func:`tree.leaves`
+    order), z its distance. Each pair is taken, evaluated and dropped
+    before the next is taken. Bins with at least 3 samples report the RMS
+    loss change at their center."""
     leaves = [l.detach().float() for l in tree.leaves(params0)]
     l0 = float(loss_fn(params0))
     dists, dlosses = [], []
-    for draw, z in zip(dirs, zs):
+    for draw, z in draws:
         d = [x.to(l.device, torch.float32) if isinstance(x, torch.Tensor)
              else torch.tensor(np.asarray(x, np.float32), device=l.device)
              for x, l in zip(draw, leaves)]
@@ -162,6 +168,7 @@ def _probe_from_draws(loss_fn: Callable[[Any], Any], params0: Any,
                                      for l, x in zip(leaves, d)])
         dists.append(z)
         dlosses.append(float(loss_fn(w)) - l0)
+        del draw, d, w
     dists_a = np.asarray(dists)
     dl = np.asarray(dlosses)
     edges = np.linspace(0.0, max_radius, n_bins + 1)

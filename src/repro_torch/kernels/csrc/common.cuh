@@ -1,9 +1,9 @@
 // Shared helpers of the port's CUDA kernels: element types, conversions to
-// and from f32, 16-byte vector loads and stores, a block-wide sum, the RoPE
-// rotation, the sm_80+ tensor-core building blocks the bf16 flash
-// attention kernels use (cp.async, ldmatrix, mma.sync m16n8k16), and the
-// sm_90 cluster barrier and distributed shared-memory store of the decode
-// kernels.
+// and from f32, 16-byte vector loads and stores, a block-wide sum, a named
+// barrier over some warps of a block, the RoPE rotation, the sm_80+
+// tensor-core building blocks the bf16 flash attention kernels use
+// (cp.async, ldmatrix, mma.sync m16n8k16), and the sm_90 cluster barrier
+// and distributed shared-memory store of the decode kernels.
 //
 // Every kernel takes f32 or bf16 tensors (a dtype code from the wrapper:
 // 0 = float32, 1 = bfloat16) and computes in f32. bf16 values are rounded
@@ -77,6 +77,13 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   v = lane < nwarps ? scratch[lane] : 0.f;
   return warp_sum(v);
+}
+
+// Barrier over `threads` threads (whole warps) of the block on hardware
+// barrier `id` (1..15; __syncthreads uses 0): a team of warps meets
+// without stopping the block's other teams.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Frequency of pair j of a half-split RoPE row: exp(-(j / half) * log_theta).

@@ -241,9 +241,7 @@ def _lib():
     return L.bind("gbn.cu", _SIGNATURES)
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+sm_count = L.sm_count
 
 
 _fits: Dict[tuple, int] = {}

@@ -10,6 +10,7 @@ a CUDA tensor never falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -44,6 +45,12 @@ def call(fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed to launch: cudaError {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (the plans size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream(device: torch.device) -> int:

@@ -186,8 +186,8 @@ def test_probe_from_draws_matches_reference():
                      for j, l in enumerate(leaves)])
         zs.append(float(jax.random.uniform(rz, (), minval=0.0,
                                            maxval=radius)))
-    got = _probe_from_draws(tloss, tree.map(torch.tensor, params), dirs, zs,
-                            max_radius=radius, n_bins=bins)
+    got = _probe_from_draws(tloss, tree.map(torch.tensor, params),
+                            zip(dirs, zs), max_radius=radius, n_bins=bins)
     assert len(want["distance"]) >= 3
     np.testing.assert_allclose(got["distance"], want["distance"], rtol=0,
                                atol=0)
@@ -206,3 +206,56 @@ def test_random_potential_probe_is_seeded():
         np.testing.assert_array_equal(runs[0][k], runs[1][k])
     assert np.all(np.isfinite(runs[0]["loss_std"]))
     assert len(runs[0]["distance"]) >= 3
+
+
+def _draws_first(params, seed, n, radius):
+    """Today's order of the probe's draws, all taken before any loss: per
+    sample one ``randn`` a leaf in ``tree.leaves`` order, then z. Returns
+    the draws and the generator's state after each sample's draws."""
+    g = torch.Generator().manual_seed(seed)
+    dirs, zs, states = [], [], []
+    for _ in range(n):
+        dirs.append([torch.randn(l.shape, generator=g)
+                     for l in tree.leaves(params)])
+        zs.append(float(torch.rand((), generator=g)) * radius)
+        states.append(g.get_state())
+    return dirs, zs, states
+
+
+def test_probe_evaluates_each_direction_before_the_next_draw():
+    """The i-th loss change is evaluated right after the i-th draw and
+    before the (i+1)-th: the generator's state at each call of the loss is
+    the state after exactly that many samples' draws."""
+    _, tloss, params = _probe_loss_pair()
+    tp = tree.map(torch.tensor, params)
+    n, radius = 12, 2.0
+    g = torch.Generator().manual_seed(5)
+    seen = []
+
+    def loss(p):
+        seen.append(g.get_state())
+        return tloss(p)
+
+    random_potential_probe(loss, tp, g, n_samples=n, max_radius=radius,
+                           n_bins=3)
+    _, _, states = _draws_first(tp, 5, n, radius)
+    want = [torch.Generator().manual_seed(5).get_state()] + states
+    assert len(seen) == n + 1
+    for i, (a, b) in enumerate(zip(seen, want)):
+        assert torch.equal(a, b), f"call {i} saw another generator state"
+
+
+def test_probe_equals_draws_taken_first():
+    """Bit for bit the results of ``_probe_from_draws`` fed the same draws
+    taken all before any loss."""
+    _, tloss, params = _probe_loss_pair()
+    tp = tree.map(torch.tensor, params)
+    n, radius, bins = 40, 2.0, 4
+    got = random_potential_probe(tloss, tp, torch.Generator().manual_seed(3),
+                                 n_samples=n, max_radius=radius, n_bins=bins)
+    dirs, zs, _ = _draws_first(tp, 3, n, radius)
+    want = _probe_from_draws(tloss, tp, zip(dirs, zs), max_radius=radius,
+                             n_bins=bins)
+    assert len(want["distance"]) >= 3
+    for k in ("distance", "loss_std"):
+        np.testing.assert_array_equal(got[k], want[k])

@@ -345,7 +345,8 @@ SERVING_DTYPES = [torch.float32, torch.bfloat16]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", SERVING_DTYPES)
-@pytest.mark.parametrize("shape", [(17, 128), (64, 2048), (5, 100), (3, 7)])
+@pytest.mark.parametrize("shape", [(17, 128), (64, 2048), (5, 100), (3, 7),
+                                   (64, 3840), (64, 5376), (64, 8192)])
 def test_cuda_rmsnorm_residual_matches_plain(shape, dtype):
     gen = _on_card()
     x, r = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -923,7 +924,8 @@ def _close_sum(got, want, tol):
 @pytest.mark.parametrize("dtype", SERVING_DTYPES)
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("shape", [(17, 128), (4096, 2048), (5, 100),
-                                   (300, 7)])
+                                   (300, 7), (64, 3840), (64, 5376),
+                                   (64, 8192)])
 def test_cuda_rmsnorm_residual_backward_matches_plain(shape, residual, dtype):
     gen = _on_card()
     N, d = shape
@@ -940,6 +942,25 @@ def test_cuda_rmsnorm_residual_backward_matches_plain(shape, residual, dtype):
     assert torch.equal(again[0], dx) and torch.equal(again[1], dscale)
     assert FN.launches == {"rmsnorm_residual": 0,
                            "rmsnorm_residual_backward": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SERVING_DTYPES)
+@pytest.mark.parametrize("d", [2048, 5376, 8192])
+def test_cuda_rmsnorm_rows_equal_their_solo_calls(d, dtype):
+    """A row of a 4096-row call equals, bit for bit, the row computed
+    alone: B3's y and s, B4's dx (the rows' order depends on d only)."""
+    gen = _on_card()
+    x, r, dy, ds = (_randn_card(gen, 4096, d, dtype=dtype) for _ in range(4))
+    scale = torch.linspace(0.5, 1.5, d, device="cuda")
+    y, s = FN.rmsnorm_residual(x, r, scale)
+    dx, _ = FN.rmsnorm_residual_backward(s, scale, dy, ds)
+    for i in (0, 1, 7, 31, 32, 63, 4095):
+        yi, si = FN.rmsnorm_residual(x[i:i + 1], r[i:i + 1], scale)
+        assert torch.equal(yi[0], y[i]) and torch.equal(si[0], s[i])
+        dxi, _ = FN.rmsnorm_residual_backward(si, scale, dy[i:i + 1],
+                                              ds[i:i + 1])
+        assert torch.equal(dxi[0], dx[i])
 
 
 @pytest.mark.gpu
