@@ -312,7 +312,28 @@ Phases (any failure exits nonzero and prints no ``ok`` line):
    with SGD and Adam and EP over 4 ranks against the single-process
    step; int8 momentum (card against CPU); a 2-step generalization-gap
    sweep with ``use_mesh=True`` over 2 ranks against the single-process
-   sweep; a sharded checkpoint of the 4 ranks restored in one process.
+   sweep; a sharded checkpoint of the 4 ranks restored in one process;
+35. model-sharded serving: ContinuousEngine(mesh=) over 2 ranks as (1
+   data, 2 model) that share the card, phase 10's model (qwen3-1.7b at
+   full width cut to ENGINE_LAYERS = 8 of 28 layers, phase 7's weights),
+   ENGINE_TRACE, 16 slots, pages of 16, a bf16 and an int8 pool: a rank
+   holds 8 of 16 q heads, 4 of 8 kv heads of every pool and d_ff 3072.
+   Gates: each request's prefill logits within BF16_TOL of phase 10's
+   (relative to their largest magnitude) and its first token equal, or,
+   where phase 10's logits are near-tied, trailing phase 10's pick there
+   by at most BF16_TOL of the largest magnitude (random weights leave
+   such ties, which bf16 partial sums flip); each rank's launches of B3,
+   B5, B9 and B13 equal phase 10's; reduced f32 over the same ranks gives
+   the unsharded engine's tokens. Printed:
+   the share of bf16 tokens equal to phase 10's, useful tokens/s, decode
+   ms a step, the collectives' calls, bytes and ms a step, idle share,
+   pool bytes a rank (``steady_steps``: 16 rows active, a profiled step);
+36. the launchers as a user runs them: ``python -m
+   repro_torch.launch.serve --arch qwen3-1.7b-reduced --use-kernels
+   --continuous --device-trace DIR --trace F --metrics-out M`` and a
+   5-step ``python -m repro_torch.launch.train``; each exits 0, and the
+   device trace holds the B9 kernels under ``serve.admit`` and every B13
+   kernel under ``serve.decode_step``.
 
 A line before the second-to-last gives the MoE path's kernels: each one's
 device ms and launches in the profiled generate, engine run and train
@@ -2209,7 +2230,8 @@ def phase_engine(params):
         torch.cuda.reset_peak_memory_stats()
         reset_serving_launches()
         t0 = time.perf_counter()
-        comps = eng.run(trace)
+        with admission_logits() as prefill_logits:
+            comps = eng.run(trace)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = serving_launches()
@@ -2251,6 +2273,10 @@ def phase_engine(params):
             out["states"] = [rec["pos"][(2 * i + 1) * n // (2 * PAGED_STATES)]
                              for i in range(PAGED_STATES)]
             out["admits"] = admits
+            # phase 35's reference: each request's prefill logits
+            out["prefill_logits"] = {
+                i: lg.float().cpu().numpy()
+                for (i, *_), lg in zip(admits, prefill_logits)}
         del eng
         gc.collect()        # the patched step holds a cycle with eng
         torch.cuda.empty_cache()
@@ -2401,7 +2427,27 @@ def phase_engine(params):
         f"useful tokens in {wall:.2f} s = {useful / wall:.1f} useful "
         f"tokens/s; continuous engine {out['bf16']['stats']['useful_tok_s']:.1f}")
     torch.cuda.empty_cache()
+    out["tokens"] = runs
     return out
+
+
+@contextlib.contextmanager
+def admission_logits():
+    """Every admission prefill's last-position logits (1 row each, a
+    device copy: no wait on the card) in admission order, while inside."""
+    from repro_torch.serving import engine as E
+    base, seen = E.prefill_fused, []
+
+    def recording(*args, **kwargs):
+        last, cache = base(*args, **kwargs)
+        seen.append(last[0].detach().clone())
+        return last, cache
+
+    E.prefill_fused = recording
+    try:
+        yield seen
+    finally:
+        E.prefill_fused = base
 
 
 def phase_engine_cuda_vs_cpu():
@@ -5961,6 +6007,346 @@ def mesh_kernel_line(dp, lm, ep):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 10: model-sharded serving and the launchers
+# ---------------------------------------------------------------------------
+
+SHARDED_KERNELS = ("rmsnorm_residual", "swiglu", "flash_attention",
+                   "flash_decode_paged")
+# reduced qwen3 in f32 over the same ranks: a trace that reuses slots
+SHARDED_F32 = dict(trace=dict(n_requests=12, rate=0.5,
+                              prompt_len_choices=(8, 16, 24),
+                              new_token_choices=(4, 8, 16), seed=1),
+                   engine=dict(num_slots=4, max_len=48, layout="paged",
+                               page_size=16))
+
+
+SHARDED_STEADY = (8, 8)   # phase 35: steps timed, then steps with each
+                          # collective timed alone, 16 rows active
+
+
+def steady_steps(eng, trace):
+    """Decode steps of ``eng`` with its 16 slots busy (the first
+    ENGINE_SLOTS requests, all arriving at once): after 8 warm steps,
+    SHARDED_STEADY[0] steps each timed by the host clock around a
+    synchronized step, SHARDED_STEADY[1] steps with each collective timed
+    alone, then one step profiled (``rank_profile``: device busy ms); the
+    run stops there. Every rank takes the same steps."""
+    from repro_torch.launch import collectives as C
+    step, n_ms, n_coll = eng.step, *SHARDED_STEADY
+    rec = {"step_ms": [], "collective_ms": 0.0, "collective_calls": 0}
+
+    def measured():
+        i = eng.steps - 8
+        if i < 0:
+            step()
+        elif i < n_ms:
+            mesh_sync()
+            t0 = time.perf_counter()
+            step()
+            mesh_sync()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        elif i < n_ms + n_coll:
+            C.reset_stats()
+            with C.timed():
+                step()
+            rec["collective_ms"] += C.STATS["ms"] / n_coll
+            rec["collective_calls"] = C.STATS["calls"]
+        else:
+            rec["profile"] = rank_profile(step)
+            raise _Stop
+
+    eng.step = measured
+    try:
+        eng.run([dataclasses.replace(r, arrival=0.0)
+                 for r in trace[:ENGINE_SLOTS]])
+    except _Stop:
+        pass
+    finally:
+        eng.step = step
+    if "profile" not in rec:
+        raise AssertionError(f"steady steps: the run ended after "
+                             f"{eng.steps} steps, before its profiled one")
+    return rec
+
+
+def sharded_engine_rank(rank, out):
+    """Phase 35's rank: phase 10's model and trace through
+    ContinuousEngine(mesh=) on (1 data, 2 model), a bf16 then an int8
+    pool (each run's launches, collectives, decode step times and
+    admissions' prefill logits), then steady decode steps of the bf16
+    pool (``steady_steps``); then reduced f32 sharded against the
+    unsharded engine on this rank."""
+    import torch
+    rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import make_2d_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import ContinuousEngine, poisson_trace
+    mesh = make_2d_mesh(model=2, device=MESH_DEVICE)
+    cfg, params = engine_model(serve_params())
+    trace = poisson_trace(cfg, **ENGINE_TRACE)
+    kw = dict(num_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+              layout="paged", page_size=ENGINE_PAGE)
+    res = {"coords": mesh.coords}
+    engines = {}
+    for cache_dtype in (None, "int8"):
+        label = cache_dtype or "bf16"
+        eng = ContinuousEngine(params, cfg, mesh=mesh,
+                               cache_dtype=cache_dtype, **kw)
+        engines[label] = eng
+        step, step_s = eng.step, []
+
+        def timed_step(step=step, step_s=step_s):
+            t0 = time.perf_counter()
+            step()
+            step_s.append(time.perf_counter() - t0)
+
+        admit, order = eng._admit, []
+
+        def ordered_admit(req, slot, admit=admit, order=order):
+            ok = admit(req, slot)
+            if ok:
+                order.append(req.id)
+            return ok
+
+        eng.step, eng._admit = timed_step, ordered_admit
+        mesh_sync()
+        reset_serving_launches()
+        C.reset_stats()
+        t0 = time.perf_counter()
+        with admission_logits() as logits:
+            comps = eng.run(trace)
+        mesh_sync()
+        wall = time.perf_counter() - t0
+        eng.step, eng._admit = step, admit
+        res[label] = {
+            "wall_s": wall, "stats": eng.stats(),
+            "launches": {k: serving_launches()[k] for k in SHARDED_KERNELS},
+            "collectives": {k: C.STATS[k] for k in ("calls", "bytes",
+                                                    "staged_bytes")},
+            "step_ms": sum(step_s) * 1e3 / len(step_s),
+            "tokens": {i: c.tokens for i, c in comps.items()},
+            "logits": [lg.float().cpu().numpy() for lg in logits],
+            "order": order,
+            "pool_bytes": pool_bytes(eng.cache),
+            "pool_shape": tuple(eng.cache["body"][0][0]["attn"]["kp"].shape),
+            "peak_gib": rank_peak_gib()}
+    del params
+    gc.collect()
+    res["bf16"]["steady"] = steady_steps(engines["bf16"], trace)
+    del engines
+    gc.collect()
+    if MESH_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    rcfg = dataclasses.replace(get_config(SERVE_ARCH + "-reduced"),
+                               dtype="float32")
+    rparams = TT.init_params(SERVE_SEED, rcfg, MESH_DEVICE)
+    rtrace = poisson_trace(rcfg, **SHARDED_F32["trace"])
+    solo = ContinuousEngine(rparams, rcfg, device=MESH_DEVICE,
+                            **SHARDED_F32["engine"]).run(rtrace)
+    sharded = ContinuousEngine(rparams, rcfg, mesh=mesh,
+                               **SHARDED_F32["engine"]).run(rtrace)
+    res["f32"] = {"solo": {i: c.tokens for i, c in solo.items()},
+                  "sharded": {i: c.tokens for i, c in sharded.items()}}
+    rank_dump(out, rank, res)
+
+
+def phase_sharded_engine(engine):
+    """Phase 35 (see the module doc): the gates against phase 10's runs
+    (``engine``, phase_engine's result) and the printed numbers."""
+    import numpy as np
+    ranks = spawn_ranks("phase 35", sharded_engine_rank, 2)
+    by_id = engine["prefill_logits"]
+    order = [i for i, *_ in engine["admits"]]
+    L = ENGINE_LAYERS
+    out = {"ranks": ranks}
+    ties = []
+    for r, res in enumerate(ranks):
+        for label in ("bf16", "int8"):
+            run, want = res[label], engine[label]["launches"]
+            got = run["launches"]
+            if any(got[k] != want[k] for k in SHARDED_KERNELS):
+                raise AssertionError(
+                    f"phase 35 rank {r} {label}: launches {got}, phase "
+                    f"10's { {k: want[k] for k in SHARDED_KERNELS} }")
+            if run["order"] != order:
+                raise AssertionError(f"phase 35 rank {r} {label}: "
+                                     f"admissions {run['order']}, phase "
+                                     f"10's {order}")
+            worst = 0.0
+            for i, lg in zip(order, run["logits"]):
+                ref = by_id[i]
+                err = float(np.abs(lg - ref).max() / np.abs(ref).max())
+                worst = max(worst, err)
+                if err > BF16_TOL:
+                    raise AssertionError(
+                        f"phase 35 rank {r} {label}: request {i}'s prefill "
+                        f"logits {err:.4g} of their largest magnitude "
+                        f"from phase 10's (> {BF16_TOL})")
+                first, ref_first = run["tokens"][i][0], \
+                    engine["tokens"][label][i][0]
+                if first == ref_first:
+                    continue
+                # a near-tie of phase 10's own logits: its pick leads ours
+                # by less than the logits' tolerance
+                margin = float((ref[ref_first] - ref[first])
+                               / np.abs(ref).max())
+                ties.append((r, label, i, first, ref_first, margin))
+                if margin > BF16_TOL:
+                    raise AssertionError(
+                        f"phase 35 rank {r} {label}: request {i}'s first "
+                        f"token {first}, phase 10's {ref_first}, whose "
+                        f"logit leads by {margin:.4g} of the largest "
+                        f"magnitude (> {BF16_TOL})")
+            ref_toks = engine["tokens"][label]
+            same = sum(a == b for i in ref_toks
+                       for a, b in zip(ref_toks[i], run["tokens"][i]))
+            total = sum(len(t) for t in ref_toks.values())
+            run["agreement"] = same / total
+            run["worst_logits"] = worst
+        if res["f32"]["sharded"] != res["f32"]["solo"]:
+            bad = [i for i in res["f32"]["solo"]
+                   if res["f32"]["sharded"].get(i) != res["f32"]["solo"][i]]
+            raise AssertionError(f"phase 35 rank {r}: reduced f32 sharded "
+                                 f"tokens differ from the unsharded "
+                                 f"engine's for requests {bad}")
+    for label in ("bf16", "int8"):
+        runs = [res[label] for res in ranks]
+        st = runs[0]["stats"]
+        c = runs[0]["collectives"]
+        steps = st["steps"]
+        log(f"phase 35 {SERVE_ARCH} ({L} of 28 layers) sharded over 2 ranks "
+            f"(1 data, 2 model) on one card, {label} pool: tokens equal to "
+            f"phase 10's {[round(x['agreement'], 4) for x in runs]} a rank "
+            f"(prefill logits within "
+            f"{[round(x['worst_logits'], 5) for x in runs]} of their "
+            f"largest magnitude); useful tokens/s "
+            f"{[round(x['stats']['useful_tok_s'], 1) for x in runs]} "
+            f"(phase 10 {engine[label]['stats']['useful_tok_s']:.1f}); "
+            f"decode ms a step {[round(x['step_ms'], 3) for x in runs]} "
+            f"over {steps:.0f} steps; collectives a run {c['calls']} calls, "
+            f"{c['bytes']} bytes ({c['calls'] / steps:.1f} calls, "
+            f"{c['bytes'] / steps:.0f} bytes a step, admissions included; "
+            f"staged {c['staged_bytes']} bytes); pool bytes a rank "
+            f"{runs[0]['pool_bytes']} (phase 10 "
+            f"{engine[label]['pool_bytes']}), pool "
+            f"{runs[0]['pool_shape']}; peak "
+            f"{[round(x['peak_gib'], 2) for x in runs]} GiB; launches a "
+            f"rank {runs[0]['launches']}")
+    log(f"  phase 35 first tokens: {2 * 2 * len(order) - len(ties)} of "
+        f"{2 * 2 * len(order)} (2 ranks x 2 pools x {len(order)} requests) "
+        f"equal to phase 10's; the others near-ties of phase 10's logits "
+        f"(rank, pool, request, token, phase 10's, its lead over ours "
+        f"relative to the largest magnitude): {ties}")
+    for r, res in enumerate(ranks):
+        st = res["bf16"]["steady"]
+        prof = st["profile"]
+        step_ms = median(st["step_ms"])
+        log(f"  phase 35 rank {r} bf16, 16 active rows: decode step "
+            f"{step_ms:.3f} ms (median of {[round(t, 3) for t in st['step_ms']]}"
+            f", synchronized); collectives {st['collective_calls']} calls, "
+            f"{st['collective_ms']:.3f} ms a step, each timed alone; one "
+            f"profiled step busy {prof['busy_ms']:.3f} ms (idle share "
+            f"{1 - prof['busy_ms'] / step_ms:.3f}); device ms by family "
+            f"{ {k: round(v, 3) for k, v in sorted(prof['families'].items())} }"
+            f", kernels {prof['calls']}")
+    f32 = ranks[0]["f32"]
+    log(f"  phase 35 reduced f32 ({SHARDED_F32}): "
+        f"{sum(len(t) for t in f32['solo'].values())} tokens of "
+        f"{len(f32['solo'])} requests equal to the unsharded engine's on "
+        f"both ranks")
+    return out
+
+
+def trace_spans(events, kernel_fams):
+    """Kernels of ``kernel_fams`` in a Chrome trace of ``torch.profiler``:
+    {family: {innermost enclosing serve.* span name or None: count}}. A
+    kernel is under a span when its device interval lies in one of the
+    span's device annotations, or its launch (by correlation id) or its
+    start lies in the span's host interval; of those, the shortest is the
+    innermost."""
+    def within(ev, spans):
+        t0, t1 = ev["ts"], ev["ts"] + ev.get("dur", 0)
+        return [(s1 - s0, name) for name, s0, s1 in spans
+                if s0 <= t0 and t1 <= s1]
+
+    def spans_of(cat):
+        return [(e["name"], e["ts"], e["ts"] + e.get("dur", 0))
+                for e in events if e.get("cat") == cat
+                and str(e.get("name", "")).startswith("serve.")]
+
+    gpu_spans, cpu_spans = spans_of("gpu_user_annotation"), \
+        spans_of("user_annotation")
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    out = {f: {} for f in kernel_fams}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        fam = family(e["name"])
+        if fam not in out:
+            continue
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        found = within(e, gpu_spans) + within({"ts": e["ts"]}, cpu_spans) \
+            + (within(launch, cpu_spans) if launch is not None else [])
+        name = min(found)[1] if found else None
+        out[fam][name] = out[fam].get(name, 0) + 1
+    return out
+
+
+def phase_launchers(tmp):
+    """Phase 36: the launchers as a user runs them, in their own
+    processes (the kernels already built in this checkout)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = Path(tmp)
+    dt_dir = tmp / "device_trace"
+    serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                 SERVE_ARCH + "-reduced", "--use-kernels", "--continuous",
+                 "--device-trace", str(dt_dir), "--trace",
+                 str(tmp / "spans.json"), "--metrics-out",
+                 str(tmp / "metrics.jsonl")]
+    train_cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 SERVE_ARCH + "-reduced", "--steps", "5", "--batch", "8",
+                 "--base-batch", "8", "--seq-len", "64", "--log-every", "1",
+                 "--ckpt", str(tmp / "ckpt")]
+    walls = {}
+    for label, cmd in (("serve", serve_cmd), ("train", train_cmd)):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=300, cwd=str(tmp))
+        walls[label] = time.perf_counter() - t0
+        lines = p.stdout.strip().splitlines()
+        log(f"phase 36 {' '.join(cmd[1:4])} ... exited {p.returncode} in "
+            f"{walls[label]:.1f} s: " + " | ".join(
+                line for line in lines
+                if line.startswith(("continuous", "static", "step", "done",
+                                    "checkpoint", "wrote"))))
+        if p.returncode != 0:
+            raise AssertionError(f"phase 36 {label}: exit {p.returncode}\n"
+                                 f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    traces = sorted(dt_dir.glob("device_trace_*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"phase 36: device traces {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    under = trace_spans(events, ("flash_fwd", "flash_decode_paged"))
+    log(f"  phase 36 device trace ({traces[0].stat().st_size} bytes): "
+        f"kernels by enclosing span {under}")
+    # B9 also runs in the lockstep baseline's prefills, outside any span
+    b9, b13 = under["flash_fwd"], under["flash_decode_paged"]
+    if {k for k in b9 if k} != {"serve.admit"} \
+            or set(b13) != {"serve.decode_step"}:
+        raise AssertionError(f"phase 36: B9 kernels {b9}, B13 kernels {b13}"
+                             f": want every B9 of the engine under "
+                             f"serve.admit and every B13 under "
+                             f"serve.decode_step")
+    return {"walls": walls, "under": under}
+
+
 def main() -> int:
     try:
         import torch
@@ -6092,6 +6478,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
             phase_mesh_parity(tmp)
         lap("mesh parity")
+        # slice 10: model-sharded serving and the launchers
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_sharded_engine(engine)
+        lap("sharded engine")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+            phase_launchers(tmp)
+        lap("launchers")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -37,8 +37,11 @@ of its heads) or of its dense MLP (w_gate/w_up columns, w_down rows).
 :func:`_tp_axis` sees the slice from the leaf's shape, and the sublayer
 becomes one partial-sum region: ``region_in`` on everything replicated
 that enters it (the normed stream and the qk-norm scales), ``region_out``
-(the one sum over the model axis) on its output. A slice goes through the
-same kernels as the whole layer.
+(the one sum over the model axis) on its output, in the training forward
+and against a cache alike (prefill and decode of a model-sharded engine,
+whose cache holds the rank's kv heads). A slice goes through the same
+kernels as the whole layer. MoE, SSM and cross blocks take no slice in
+serving (``serving.ContinuousEngine`` refuses them on a mesh).
 """
 from __future__ import annotations
 
@@ -112,21 +115,24 @@ def block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                 dtype: torch.dtype, layout: str = "seq", page_size: int = 64,
                 total_pages: Optional[int] = None,
                 cache_dtype: Optional[str] = None, device=None,
-                memory_len: int = 0) -> Params:
+                memory_len: int = 0, kv_heads: Optional[int] = None
+                ) -> Params:
     """Decode-time cache of one block: ``layout`` "seq" (B, S, kv, hd),
     "head" (B, kv, S, hd), the decode kernel's layout, or "paged" (page
     pool + block tables; swa layers keep their head-major ring).
     ``cache_dtype="int8"`` quantizes the paged pool per slot (see
     ``layers.init_kv_cache``). A cross block also holds zeroed
     ``cross_k``/``cross_v`` (B, memory_len, kv, hd) in ``dtype``, whatever
-    the layout."""
+    the layout. ``kv_heads`` (default ``cfg.n_kv_heads``) is the
+    attention cache's kv heads."""
     c: Params = {}
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
         c["attn"] = L.init_kv_cache(cfg, batch, max_len, window, dtype,
                                     layout=layout, page_size=page_size,
                                     total_pages=total_pages,
-                                    cache_dtype=cache_dtype, device=device)
+                                    cache_dtype=cache_dtype, device=device,
+                                    kv_heads=kv_heads)
     elif spec.mixer == "ssm":
         c["ssm"] = SSM.init_ssm_cache(cfg, batch, device=device)
     if spec.cross_attn:
@@ -164,34 +170,32 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
     if spec.mixer in ("attn", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
         h = L.norm_apply(cfg, params["norm1"], x, use_kernels=use_kernels)
-        ax = (_tp_axis(params["mixer"]["wq"].shape[-1],
-                       cfg.n_heads * cfg.head_dim) if cache is None else None)
+        mp = params["mixer"]
+        ax = _tp_axis(mp["wq"].shape[-1], cfg.n_heads * cfg.head_dim)
         if ax is not None:
             # head-split qkv (column-parallel) and wo (row-parallel): one
-            # partial-sum region, the per-head qk-norm scales fenced too
-            mp = dict(params["mixer"])
+            # partial-sum region, the per-head qk-norm scales fenced too;
+            # a cache holds this rank's kv heads
+            mp = dict(mp)
             for nk in ("q_norm", "k_norm"):
                 if nk in mp:
                     mp[nk] = {**mp[nk],
                               "scale": EP.region_in(mp[nk]["scale"], ax)}
-            y_mix = EP.region_out(
-                L.attention_full(mp, cfg, EP.region_in(h, ax), positions,
-                                 window=window, causal=causal,
-                                 use_kernels=use_kernels), ax)
-        elif cache is None:
-            y_mix = L.attention_full(params["mixer"], cfg, h, positions,
-                                     window=window, causal=causal,
-                                     use_kernels=use_kernels)
+            h = EP.region_in(h, ax)
+        if cache is None:
+            y_mix = L.attention_full(mp, cfg, h, positions, window=window,
+                                     causal=causal, use_kernels=use_kernels)
         elif decode:
-            y_mix, _ = L.attention_decode(params["mixer"], cfg, h,
-                                          cache["attn"], pos, window=window,
-                                          offsets=offsets,
+            y_mix, _ = L.attention_decode(mp, cfg, h, cache["attn"], pos,
+                                          window=window, offsets=offsets,
                                           use_kernels=use_kernels)
         else:
-            y_mix, _ = L.attention_prefill(params["mixer"], cfg, h,
-                                           positions, cache["attn"],
-                                           window=window, offsets=offsets,
+            y_mix, _ = L.attention_prefill(mp, cfg, h, positions,
+                                           cache["attn"], window=window,
+                                           offsets=offsets,
                                            use_kernels=use_kernels)
+        if ax is not None:
+            y_mix = EP.region_out(y_mix, ax)
     elif spec.mixer == "ssm":
         h = L.norm_apply(cfg, params["norm1"], x, use_kernels=use_kernels)
         if cache is None:
@@ -222,7 +226,7 @@ def block_apply(params: Params, cfg: ModelConfig, spec: LayerSpec, x: Tensor,
             h = L.norm_apply(cfg, params["norm2"], x,
                              use_kernels=use_kernels)
         ax = (_tp_axis(params["ff"]["w_gate"].shape[-1], cfg.d_ff)
-              if spec.ff == "dense" and cache is None else None)
+              if spec.ff == "dense" else None)
         if ax is not None:
             # column-parallel w_gate/w_up, row-parallel w_down
             x = x + EP.region_out(
@@ -260,7 +264,8 @@ def stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype, layout: str = "seq", page_size: int = 64,
                 total_pages: Optional[int] = None,
                 cache_dtype: Optional[str] = None, device=None,
-                memory_len: int = 0) -> Params:
+                memory_len: int = 0, kv_heads: Optional[int] = None
+                ) -> Params:
     """Caches of every layer (a cross block's ``memory_len`` deep). Under
     ``layout="paged"`` every paged layer holds its own page pool but all
     share ONE block table tensor ``pt`` (the reference keeps one logical
@@ -269,7 +274,7 @@ def stack_cache(cfg: ModelConfig, batch: int, max_len: int,
     def one(spec):
         return block_cache(cfg, spec, batch, max_len, dtype, layout,
                            page_size, total_pages, cache_dtype, device,
-                           memory_len)
+                           memory_len, kv_heads)
 
     tree = {
         "head": [one(s) for s in cfg.head_pattern],

@@ -345,9 +345,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16, layout: str = "seq",
                   page_size: int = 64, total_pages: Optional[int] = None,
                   cache_dtype: Optional[str] = None,
-                  device=None) -> Params:
+                  device=None, kv_heads: Optional[int] = None) -> Params:
     """KV cache of one attention layer: a ring of ``min(max_len, window)``
-    slots for sliding-window layers, ``max_len`` slots otherwise.
+    slots for sliding-window layers, ``max_len`` slots otherwise, of
+    ``kv_heads`` kv heads (default ``cfg.n_kv_heads``; a rank of a
+    model-sharded engine holds its share).
 
     - ``layout="seq"``: ``k``/``v`` (B, S, kv, hd), the plain path's.
     - ``layout="head"``: ``kh``/``vh`` (B, kv, S, hd), the decode kernel's.
@@ -371,7 +373,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     if layout not in ("seq", "head", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     S = min(max_len, window) if window is not None else max_len
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    kv = cfg.n_kv_heads if kv_heads is None else kv_heads
+    hd = cfg.head_dim
     if layout == "paged" and window is None:
         nb = -(-max_len // page_size)
         pages = total_pages if total_pages is not None else 1 + batch * nb
@@ -468,10 +471,12 @@ def attention_decode(params: Params, cfg: ModelConfig, x: Tensor,
     position) or a per-row (B,) tensor. ``offsets`` (B,) are the left pads
     of ragged prompts: RoPE positions are ``pos - offsets`` and earlier
     slots are masked. Writes this token's K/V into ``cache`` in place; a
-    paged cache (``pt`` in it) takes :func:`_paged_decode`. Returns
-    (y (B, 1, D), cache)."""
+    paged cache (``pt`` in it) takes :func:`_paged_decode`. The head
+    counts are the projections' (a tensor-parallel rank holds a share of
+    them) and the cache's. Returns (y (B, 1, D), cache)."""
     B = x.shape[0]
-    h, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h = params["wq"].shape[-1] // hd
     dev = x.device
     vector_pos = isinstance(pos, Tensor)
     if vector_pos:

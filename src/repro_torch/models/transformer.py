@@ -120,7 +120,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype: Optional[torch.dtype] = None, layout: str = "head",
                page_size: int = 64, total_pages: Optional[int] = None,
                cache_dtype: Optional[str] = None,
-               device: DeviceLike = None) -> Params:
+               device: DeviceLike = None,
+               kv_heads: Optional[int] = None) -> Params:
     """Zeroed KV caches of every layer, ``max_len`` slots deep (a ring of
     ``sliding_window`` slots for "swa" layers). ``layout="head"`` is the
     decode kernel's (B, kv, S, hd); "seq" the plain path's (B, S, kv, hd);
@@ -131,11 +132,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     per-slot int8 codes with f32 scales (``ks``/``vs``). ``dtype``
     defaults to the config's compute dtype. Cross blocks get zeroed
     ``cross_k``/``cross_v`` of ``memory_len`` slots, for
-    :func:`build_cross_cache` to fill."""
+    :func:`build_cross_cache` to fill. ``kv_heads`` (default
+    ``cfg.n_kv_heads``) sizes the attention caches: a tensor-parallel rank
+    holds its share of the kv heads."""
     dev = resolve_device(device)
     return B.stack_cache(cfg, batch, max_len, dtype or compute_dtype(cfg),
                          layout, page_size, total_pages, cache_dtype, dev,
-                         memory_len)
+                         memory_len, kv_heads)
 
 
 def build_cross_cache(params: Params, cfg: ModelConfig, memory: Tensor,

@@ -17,8 +17,9 @@ trace-event JSON — a flat list of ``"ph": "X"`` complete events that
 3. **Timestamps.** Spans are timed with ``perf_counter_ns`` against a
    per-tracer origin, emitted in microseconds (the trace-event unit).
 
-The reference's ``device_trace`` (a ``jax.profiler`` capture) and its CLI
-come with the tooling slice.
+:class:`device_trace` captures the card's (and the host's) activity with
+``torch.profiler`` into a Chrome trace, and ``python -m repro_torch.obs
+--label NAME -- cmd`` (:func:`_main`) times a command inside one span.
 """
 from __future__ import annotations
 
@@ -127,3 +128,74 @@ class Tracer:
 #: The disabled tracer un-instrumented call sites bind to. Spans on it are
 #: the singleton no-op; never enable it in place — make your own Tracer.
 NULL_TRACER = Tracer(enabled=False)
+
+
+class device_trace:
+    """Context manager around a ``torch.profiler`` capture of CPU and (with
+    a card) CUDA activity, written on exit as a Chrome trace
+    ``device_trace_<pid>.json`` under ``logdir`` (its path in ``.path``).
+    With a tracer that annotates the device (``Tracer(annotate_device=
+    True)``), the spans' ``record_function`` names appear in the trace over
+    the kernels launched inside them.
+
+    Unlike the reference's ``jax.profiler`` capture, which degrades to a
+    warning, this raises when the profiler cannot start (one is already
+    running in this process, or the profiler itself fails): a run that asked
+    for a device trace does not go on without one."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self.path = os.path.join(logdir, f"device_trace_{os.getpid()}.json")
+        self._prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        if torch._C._autograd._profiler_enabled():
+            raise RuntimeError("device_trace: a profiler is already running "
+                               "in this process")
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.logdir, exist_ok=True)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        self._prof = prof
+        return self
+
+    def __exit__(self, *exc):
+        prof, self._prof = self._prof, None
+        if prof is not None:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.__exit__(*exc)
+            prof.export_chrome_trace(self.path)
+        return False
+
+
+def _main() -> int:
+    import argparse
+    import subprocess
+    ap = argparse.ArgumentParser(
+        description="run a command inside one tracer span and print its "
+                    "wall time")
+    ap.add_argument("--label", default="cmd")
+    ap.add_argument("--out", default="",
+                    help="write a Chrome trace JSON for the span")
+    ap.add_argument("cmd", nargs=argparse.REMAINDER,
+                    help="-- command to run")
+    args = ap.parse_args()
+    cmd = args.cmd[1:] if args.cmd[:1] == ["--"] else args.cmd
+    if not cmd:
+        ap.error("no command given (use: ... --label NAME -- cmd args)")
+    tracer = Tracer(enabled=True)
+    with tracer.span(args.label, cmd=" ".join(cmd)):
+        rc = subprocess.call(cmd)
+    dur_s = tracer.events[-1]["dur"] / 1e6
+    print(f"[trace] {args.label}: {dur_s:.1f}s (exit {rc})", flush=True)
+    if args.out:
+        tracer.write_chrome(args.out)
+    return rc
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

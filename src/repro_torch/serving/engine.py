@@ -25,6 +25,7 @@ budget, and its slot is refilled mid-flight (see its docstring).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -54,13 +55,18 @@ def mask_padded_vocab(cfg: ModelConfig, logits: Tensor) -> Tensor:
 
 def sample_tokens(cfg: ModelConfig, logits: Tensor, *,
                   temperature: float = 0.0, top_k: int = 0,
-                  generator: Optional[torch.Generator] = None) -> Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  rows: Optional[Tuple[int, int]] = None) -> Tensor:
     """logits (B, V) -> token ids (B,) int64.
 
     ``temperature <= 0`` is exact greedy argmax; otherwise a draw from
     ``softmax(logits / temperature)`` (Gumbel-max with uniforms from
     ``generator``, on the logits' device), optionally restricted to the
-    ``top_k`` largest logits. Padded-vocab ids are masked in every mode."""
+    ``top_k`` largest logits. Padded-vocab ids are masked in every mode.
+    ``rows=(first, total)``: the logits are rows [first, first + B) of a
+    batch of ``total`` rows; the uniforms are drawn for the whole batch
+    and these rows kept, so a batch split over ranks samples as the whole
+    batch would."""
     logits = mask_padded_vocab(cfg, logits.float())
     if temperature <= 0.0:
         return logits.argmax(dim=-1)
@@ -71,25 +77,33 @@ def sample_tokens(cfg: ModelConfig, logits: Tensor, *,
         k_eff = min(top_k, cfg.vocab_size)        # the padded tail is -inf
         kth = torch.topk(logits, k_eff, dim=-1).values[..., -1:]
         logits = logits.masked_fill(logits < kth, -torch.inf)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    if rows is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+    else:
+        first, total = rows
+        u = torch.rand((total, logits.shape[-1]), generator=generator,
+                       device=logits.device)[first:first + logits.shape[0]]
     gumbel = -torch.log(-torch.log(u))
     return (logits / temperature + gumbel).argmax(dim=-1)
 
 
 def make_serve_step(cfg: ModelConfig, use_kernels: bool = True,
                     temperature: float = 0.0, top_k: int = 0) -> Callable:
-    """(params, cache, tokens (B, 1), pos[, generator, offsets])
-    -> (next_tokens (B, 1), cache)."""
+    """(params, cache, tokens (B, 1), pos[, generator, offsets, rows])
+    -> (next_tokens (B, 1), cache); ``rows`` as :func:`sample_tokens`."""
 
     def serve_step(params: Params, cache: Params, tokens: Tensor,
                    pos: Union[int, Tensor],
                    generator: Optional[torch.Generator] = None,
-                   offsets: Optional[Tensor] = None) -> Tuple[Tensor, Params]:
+                   offsets: Optional[Tensor] = None,
+                   rows: Optional[Tuple[int, int]] = None
+                   ) -> Tuple[Tensor, Params]:
         logits, cache = T.decode_step(params, cfg, tokens, cache, pos,
                                       use_kernels=use_kernels,
                                       offsets=offsets)
         nxt = sample_tokens(cfg, logits[:, -1], temperature=temperature,
-                            top_k=top_k, generator=generator)
+                            top_k=top_k, generator=generator, rows=rows)
         return nxt[:, None], cache
 
     return serve_step
@@ -236,13 +250,15 @@ def _page_blocks(src: Tensor, ps: int) -> Tensor:
     return t.reshape(kv, S // ps, ps, hd).transpose(0, 1)
 
 
-def _scatter_admit(cache: Params, tmp: Params, cfg: ModelConfig, slot: int,
-                   pages: Tensor) -> None:
+def _scatter_admit(cache: Params, tmp: Params, cfg: ModelConfig,
+                   slot: Optional[int], pages: Tensor) -> None:
     """Scatter a freshly prefilled batch-1 contiguous cache ``tmp`` into row
     ``slot`` of the serving cache, in place.
 
     Contiguous leaves (``kh``/``vh`` rings, "seq" ``k``/``v``) are a row
-    copy. A paged layer cuts the temp cache's head-major ``kh``/``vh`` into
+    copy (none when ``slot`` is None: the row lives on another data rank
+    of a sharded engine). A paged layer cuts the temp cache's head-major
+    ``kh``/``vh`` into
     page-sized blocks and writes the prompt's blocks at ``pages`` (the
     row's freshly allocated pages, one per block of the prompt); an int8
     pool quantizes each slot on the way in (:func:`quantize_slots`, the
@@ -255,8 +271,9 @@ def _scatter_admit(cache: Params, tmp: Params, cfg: ModelConfig, slot: int,
         for key, dst in dst_block.items():
             src = src_block[key]
             if "pt" not in dst:
-                for name, leaf in dst.items():
-                    leaf[slot] = src[name][0].to(leaf.dtype)
+                if slot is not None:
+                    for name, leaf in dst.items():
+                        leaf[slot] = src[name][0].to(leaf.dtype)
                 continue
             ps = dst["kp"].shape[2]
             for pool, scales, full in (("kp", "ks", "kh"), ("vp", "vs", "vh")):
@@ -324,10 +341,32 @@ class ContinuousEngine:
     no-op singleton.
 
     ``temperature > 0`` samples with ``generator`` (a ``torch.Generator``
-    on ``device``), else greedy. ``mesh=`` (model-sharded serving, with
-    the serving caches' specs) comes with the serving slice and raises
-    here. The engine runs on ``device``
-    (the card unless told otherwise), where ``params`` must live.
+    on ``device``), else greedy. The engine runs on ``device`` (the card
+    unless told otherwise), where ``params`` must live.
+
+    ``mesh=`` (a :class:`repro_torch.launch.mesh.Mesh` with a "model"
+    axis, every rank of it constructing the engine alike from the same
+    whole ``params``, with no ``device``: the engine runs on the mesh's)
+    serves one model across ranks. Each rank keeps its
+    Megatron slice of the attention heads and of the dense MLP
+    (``train.parallel.mesh_param_specs(tp=True)``, no FSDP; embedding
+    and LM head replicated) and its slice of the cache by
+    ``sharding.rules.cache_specs``: its kv heads of every page pool (and
+    int8 scales), and, when the slots divide over the data axes, its
+    rows of the block table. Every rank runs the same host scheduler
+    (queue, pages, block table, retirement); its decisions are
+    deterministic, so they agree without messages. A data rank decodes
+    its rows; the step's tokens are gathered over the data axes
+    (``all_gather``) so every scheduler sees every row. Admission
+    prefills on every rank (the pool is replicated over data). Sampling
+    draws the whole batch's uniforms on every rank and keeps the rank's
+    rows, so the tokens are the unsharded engine's for the same seed.
+    Each attention and MLP sublayer sums its partial output over "model"
+    (``core.expert_parallel.region_out``): two sums a layer a step. MoE
+    and SSM blocks raise here (the reference's engine serves them under
+    GSPMD), as do head counts that do not divide the model axis (the
+    sequence-sharded cache the reference falls back to needs a softmax
+    across ranks).
     """
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
@@ -343,14 +382,17 @@ class ContinuousEngine:
                                       + tuple(cfg.tail_pattern))):
             raise ValueError("ContinuousEngine serves decoder-only models "
                              "(no cross-attention memory)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousEngine(mesh=) (model-sharded serving) comes with "
-                "the serving slice (launch/serve.py, rules.cache_specs)")
         if layout not in ("paged", "head", "seq"):
             raise ValueError(f"unknown layout {layout!r}")
         if temperature > 0.0 and generator is None:
             raise ValueError("temperature > 0 requires a generator (the rng)")
+        self.mesh = mesh
+        self._rows: Tuple[int, int] = (0, num_slots)   # this rank's slots
+        self._row_axes: Tuple[str, ...] = ()
+        self._kv_heads = cfg.n_kv_heads
+        if mesh is not None:
+            params = self._shard(params, cfg, mesh, num_slots, device)
+            device = mesh.device
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -386,18 +428,80 @@ class ContinuousEngine:
         self._step_fn = make_serve_step(cfg, use_kernels, temperature, top_k)
         self.reset()
 
+    def _shard(self, params: Params, cfg: ModelConfig, mesh, num_slots: int,
+               device: DeviceLike) -> Params:
+        """Check that ``cfg`` can be served on ``mesh``, set this rank's
+        rows and kv heads, and return its slices of ``params``."""
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.sharding import rules
+        from repro_torch.train import parallel as PAR
+        names = getattr(mesh, "axis_names", ())
+        if mesh_lib.MODEL_AXIS not in names:
+            raise ValueError(f"a serving mesh needs a "
+                             f"{mesh_lib.MODEL_AXIS!r} axis; got {mesh!r}")
+        if device is not None:
+            raise ValueError(f"device={device}: on a mesh the engine runs "
+                             f"on the mesh's device ({mesh.device})")
+        specs = tuple(cfg.head_pattern) + tuple(cfg.body_pattern) \
+            + tuple(cfg.tail_pattern)
+        if any(s.ff == "moe" or s.mixer == "ssm" for s in specs):
+            raise NotImplementedError(
+                "model-sharded serving covers attention and dense MLP "
+                "blocks: the reference's engine serves MoE and SSM blocks "
+                "under GSPMD (experts and d_inner over 'model', its "
+                "compiler's collectives), which the port's serving regions "
+                "do not replace")
+        msize = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
+        if cfg.n_heads % msize or cfg.n_kv_heads % msize:
+            raise NotImplementedError(
+                f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads do not split "
+                f"over a model axis of {msize}: the reference then shards "
+                f"the cache's sequence and all-reduces the decode softmax, "
+                f"which the port does not serve")
+        self._kv_heads = cfg.n_kv_heads // msize
+        axes = mesh_lib.spec_axes(rules.batch_spec(mesh, num_slots)[0])
+        n_local = num_slots // mesh.axis_size(axes)
+        first = mesh.index(axes) * n_local
+        self._rows, self._row_axes = (first, first + n_local), axes
+        pspecs = PAR.mesh_param_specs(params, mesh, cfg=cfg, tp=True)
+        return PAR.shard_tree(mesh, params, pspecs)
+
+    def _region(self):
+        """The model's manual region on the mesh (a no-op without one)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.core import expert_parallel as EP
+        from repro_torch.launch import mesh as mesh_lib
+        return EP.manual_mode(
+            mesh_lib.MODEL_AXIS,
+            mesh_lib.axis_size(self.mesh, mesh_lib.MODEL_AXIS), (),
+            self.mesh)
+
+    def _local_row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's cache, None on another data
+        rank."""
+        first, end = self._rows
+        return slot - first if first <= slot < end else None
+
     # -- state ---------------------------------------------------------------
 
     def reset(self) -> None:
         cfg, n = self.cfg, self.num_slots
-        self.cache = T.init_cache(
-            cfg, n, self.max_len, layout=self.layout,
-            page_size=self.page_size or 64,
-            total_pages=self.total_pages or None,
-            cache_dtype=self.cache_dtype, device=self.device)
+        kw = dict(layout=self.layout, page_size=self.page_size or 64,
+                  total_pages=self.total_pages or None,
+                  cache_dtype=self.cache_dtype)
+        if self.mesh is None:
+            self.cache = T.init_cache(cfg, n, self.max_len,
+                                      device=self.device, **kw)
+        else:
+            from repro_torch.sharding import rules
+            whole = T.init_cache(cfg, n, self.max_len, device="meta", **kw)
+            self.cache = rules.cache_slice(
+                self.mesh, whole, rules.cache_specs(whole, self.mesh, n))
         self.pos = np.zeros((n,), np.int32)
         self.active = np.zeros((n,), bool)
-        self._last = torch.zeros((n, 1), dtype=torch.long,
+        first, end = self._rows
+        self._last = torch.zeros((end - first, 1), dtype=torch.long,
                                  device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * n
         if self.paged:
@@ -445,8 +549,10 @@ class ContinuousEngine:
         return True
 
     def _sync_pt(self) -> None:
+        first, end = self._rows
         _write_pt(self.cache, self.cfg,
-                  torch.as_tensor(self.pt_host, device=self.device))
+                  torch.as_tensor(self.pt_host[first:end],
+                                  device=self.device))
 
     def _admit(self, req: Request, slot: int) -> bool:
         cfg, dev = self.cfg, self.device
@@ -463,9 +569,11 @@ class ContinuousEngine:
             # are copied row for row
             tmp = T.init_cache(cfg, 1, self.max_len,
                                layout="seq" if self.layout == "seq"
-                               else "head", device=dev)
-            last, tmp = prefill_fused(self.params, cfg, prompt[None], tmp,
-                                      use_kernels=self.use_kernels)
+                               else "head", device=dev,
+                               kv_heads=self._kv_heads)
+            with self._region():
+                last, tmp = prefill_fused(self.params, cfg, prompt[None],
+                                          tmp, use_kernels=self.use_kernels)
             tok = sample_tokens(cfg, last, temperature=self.temperature,
                                 top_k=self.top_k, generator=self.generator)
             if self.paged:
@@ -473,8 +581,10 @@ class ContinuousEngine:
             pages = torch.as_tensor(self.pt_host[slot, :n] if self.paged
                                     else np.zeros((0,), np.int32),
                                     device=dev).long()
-            _scatter_admit(self.cache, tmp, cfg, slot, pages)
-            self._last[slot] = tok
+            row = self._local_row(slot)
+            _scatter_admit(self.cache, tmp, cfg, row, pages)
+            if row is not None:
+                self._last[row] = tok
             first = tok.tolist()[0]
         self.pos[slot] = L
         self.active[slot] = True
@@ -557,10 +667,16 @@ class ContinuousEngine:
         with self._tracer.span("serve.decode_step", step=self.steps):
             if self.paged:
                 self._ensure_pages()
-            pos = torch.tensor(self.pos, device=self.device)
-            toks, self.cache = self._step_fn(self.params, self.cache,
-                                             self._last, pos, self.generator)
+            first, end = self._rows
+            pos = torch.tensor(self.pos[first:end], device=self.device)
+            with self._region():
+                toks, self.cache = self._step_fn(
+                    self.params, self.cache, self._last, pos,
+                    self.generator, rows=(first, self.num_slots))
             self._last = toks
+            if self._row_axes:
+                from repro_torch.launch import collectives as C
+                toks = C.all_gather(toks, self._row_axes, self.mesh, 0)
             host = toks[:, 0].tolist()
         was_active = [s for s in range(self.num_slots) if self.active[s]]
         self.steps += 1

@@ -14,15 +14,15 @@ w_gate/w_up/w_down, in_proj/out_proj, embed/head) pick the rules. The
 port's decoder holds one tree per body layer
 (``stack/body/<slot>/<layer>/...``) where the reference stacks them on a
 leading axis, so a port leaf's spec is the reference's without that
-leading None. ``cache_specs`` (the serving caches) waits for the
-model-sharded serving slice.
+leading None; the same holds for :func:`cache_specs` (the serving
+caches), and :func:`cache_slice` cuts a whole cache into a rank's slice.
 """
 from __future__ import annotations
 
 import re
 from typing import Any, Callable, Tuple
 
-from repro_torch.launch.mesh import dp_axes, fsdp_axes
+from repro_torch.launch.mesh import dp_axes, fsdp_axes, spec_axes
 
 
 class P:
@@ -165,3 +165,74 @@ def batch_spec(mesh, global_batch: int, ndim: int = 2) -> P:
     if not _fits(global_batch, mesh, dp):
         dp = None
     return P(dp, *([None] * (ndim - 1)))
+
+
+def cache_specs(cache: Any, mesh, global_batch: int) -> Any:
+    """KV/SSM/cross cache specs (the reference's ``cache_specs``): the
+    batch over the data axes when ``global_batch`` divides; kv heads over
+    "model" when they divide, else the cache's sequence (the
+    reference's all-reduced decode softmax; the port serves no such
+    layout, see ``serving.ContinuousEngine``); Mamba state's d_inner over
+    "model". The page pool (``kp``/``vp`` and its int8 scales ``ks``/
+    ``vs``) is row-agnostic, so it never splits over the batch: kv heads
+    over "model" when they divide, else replicated. The block table's
+    rows split like the batch."""
+    dp = dp_axes(mesh)
+    dp = dp if len(dp) > 1 else dp[0]
+    b_ax = dp if _fits(global_batch, mesh, dp) else None
+
+    def one(p: str, leaf) -> P:
+        core = tuple(leaf.shape)
+        if p.endswith("/h"):              # (B, d_inner, d_state)
+            return _spec(mesh, core, b_ax, "model", None)
+        if p.endswith("/conv"):           # (B, k-1, d_inner)
+            return _spec(mesh, core, b_ax, None, "model")
+        if "cross_" in p:                 # (B, mem, kv, hd)
+            return _spec(mesh, core, b_ax, None, "model", None)
+        if re.search(r"/(kh|vh)$", p):    # head-major k/v: (B, kv, S, hd)
+            if _fits(core[1], mesh, "model"):
+                return _spec(mesh, core, b_ax, "model", None, None)
+            return _spec(mesh, core, b_ax, None, "model", None)
+        if re.search(r"/(kp|vp)$", p):    # page pool: (pages, kv, ps, hd)
+            if _fits(core[1], mesh, "model"):
+                return _spec(mesh, core, None, "model", None, None)
+            return P(*([None] * len(core)))
+        if re.search(r"/(ks|vs)$", p):    # int8 scales: (pages, kv, ps)
+            if _fits(core[1], mesh, "model"):
+                return _spec(mesh, core, None, "model", None)
+            return P(*([None] * len(core)))
+        if p.endswith("/pt"):             # block table: (B, n_blocks)
+            return _spec(mesh, core, b_ax, None)
+        if _fits(core[2], mesh, "model"):  # k/v: (B, S, kv, hd)
+            return _spec(mesh, core, b_ax, None, "model", None)
+        return _spec(mesh, core, b_ax, "model", None, None)
+
+    return map_with_path(one, cache)
+
+
+def cache_slice(mesh, cache: Any, specs: Any) -> Any:
+    """This rank's slice of a whole cache (the same on every rank), each
+    leaf cut by its spec onto ``mesh.device`` (``global_array``). A leaf
+    that several layers share (the paged layout's one block table) is cut
+    once and stays shared. A leaf on the "meta" device (a cache built for
+    its shapes only) gives zeros of the slice's shape."""
+    import torch
+    from repro_torch.launch.mesh import global_array
+    done = {}
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, sv) for v, sv in zip(t, s))
+        if id(t) not in done:
+            if t.device.type == "meta":
+                shape = [d // mesh.axis_size(spec_axes(e))
+                         for d, e in zip(t.shape, s)]
+                done[id(t)] = torch.zeros(shape, dtype=t.dtype,
+                                          device=mesh.device)
+            else:
+                done[id(t)] = global_array(mesh, t, s)
+        return done[id(t)]
+
+    return walk(cache, specs)

@@ -500,8 +500,8 @@ def test_engine_with_a_sliding_window_layer_rides_its_ring():
 
 
 def test_engine_validation(model):
-    """tests/test_serving_continuous.py:251, plus an exhausted pool and
-    ``mesh=``, which waits for the serving slice."""
+    """tests/test_serving_continuous.py:251, plus an exhausted pool and a
+    ``mesh=`` that has no model axis."""
     _, tcfg, _, tp = model
     kw = dict(device=CPU, layout="paged")
     with pytest.raises(ValueError, match="multiple of"):
@@ -526,7 +526,7 @@ def test_engine_validation(model):
                    max_new_tokens=8) for i in range(2)]
     with pytest.raises(RuntimeError, match="page pool exhausted"):
         tight.run(two)
-    with pytest.raises(NotImplementedError, match="serving slice"):
+    with pytest.raises(ValueError, match="serving mesh needs"):
         ContinuousEngine(tp, tcfg, mesh=object(), **ENGINE, **kw)
     with pytest.raises(ValueError, match="generator"):
         ContinuousEngine(tp, tcfg, temperature=0.7, **ENGINE, **kw)
