@@ -15,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}        # source -> ptxas report of its build
+build_seconds: Dict[str, float] = {}   # source -> seconds its nvcc ran
 
 
 def find_nvcc() -> str:
@@ -64,6 +67,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
+        t0 = time.perf_counter()
         for s in todo:
             out = library_path(s)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -71,9 +75,21 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
             procs.append((s, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
+        outputs = {}
+
+        def drain(s, p):            # each nvcc's output and its seconds
+            outputs[s] = p.communicate()
+            build_seconds[s] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=drain, args=(s, p))
+                   for s, _, _, p in procs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
         failed = []
         for s, out, tmp, p in procs:
-            stdout, stderr = p.communicate()
+            stdout, stderr = outputs[s]
             if p.returncode != 0:
                 failed.append(f"{s}: nvcc exited {p.returncode}\n"
                               f"{stdout}{stderr}")

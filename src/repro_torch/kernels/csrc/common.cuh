@@ -59,6 +59,49 @@ __device__ __forceinline__ void store16(T* p, const float (&v)[Vec16<T>::N]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// N consecutive elements of T (N * sizeof(T) = 4, 8 or 16 bytes) at an
+// address aligned to their size: where a row's halves or chunks are not
+// 16-byte aligned (bf16 rows of 120, whose second half starts at byte 120).
+template <typename T, int N>
+struct alignas(N * sizeof(T)) VecN {
+  T e[N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[N]) {
+  const VecN<T, N> raw = *reinterpret_cast<const VecN<T, N>*>(p);
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = to_f(raw.e[i]);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[N]) {
+  VecN<T, N> raw;
+#pragma unroll
+  for (int i = 0; i < N; ++i) raw.e[i] = from_f<T>(v[i]);
+  *reinterpret_cast<VecN<T, N>*>(p) = raw;
+}
+
+// Column pairs (c, c + HD/2) of a half-split RoPE row that one vector of
+// each half holds: a 16-byte vector where HD/2 divides into them, else
+// the widest smaller one that does (bf16 HD = 120: 4 pairs, 8 bytes), so
+// both halves' vectors stay aligned to their size.
+template <typename T, int HD>
+__host__ __device__ constexpr int rope_pairs() {
+  int n = Vec16<T>::N;
+  while ((HD / 2) % n != 0) n /= 2;
+  return n;
+}
+
+// The width of the bf16 tensor-core tiles for a head width HD: HD rounded
+// up to a multiple of 32 (112 and 120 take tiles of 128). The columns past
+// HD are zeros in every q, k, v, do tile, so q k^T, p v, ds k and ds^T q
+// are unchanged, and they are never stored.
+template <int HD>
+__host__ __device__ constexpr int padded_width() {
+  return (HD + 31) / 32 * 32;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -140,6 +183,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared, asynchronously (8-byte aligned addresses).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -227,15 +279,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
-// Two matrices: lanes 0-15 give the addresses (the others' are ignored).
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p)));
-}
-
 // d += a * b on the tensor cores: bf16 inputs, f32 accumulation.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -263,48 +306,55 @@ struct Tile {
   static constexpr size_t BYTES = sizeof(__nv_bfloat16) * ELEMS;
 };
 
-// Rows [r0, r0 + 64) of a row-major (n, HD) bf16 matrix into a shared tile,
-// as 16-byte cp.async copies issued by the NTHREADS threads of the block
-// (the caller commits the group); rows at or past n are zeros.
+// Rows [r0, r0 + 64) of a row-major (n, HD) bf16 matrix into a shared tile
+// of HP = padded_width<HD>() columns, as 16-byte cp.async copies issued by
+// the NTHREADS threads of the block (the caller commits the group); rows
+// at or past n, and columns at or past HD, are zeros.
 template <int HD, int NTHREADS>
 __device__ __forceinline__ void tile_load_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 int r0, int n) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks a row
+  constexpr int HP = padded_width<HD>();
+  static_assert(HD % 8 == 0, "rows are whole 16-byte chunks");
+  constexpr int CPR = HP / 8;  // 16-byte chunks a tile row
   for (int c = threadIdx.x; c < 64 * CPR; c += NTHREADS) {
     const int r = c / CPR, col = (c % CPR) * 8;
     const int row = r0 + r;
-    const bool ok = row < n;
-    cp_async16(dst + r * Tile<HD>::LD + col,
-               src + static_cast<size_t>(ok ? row : 0) * HD + col, ok);
+    const bool ok = row < n && col < HD;
+    cp_async16(dst + r * Tile<HP>::LD + col,
+               src + (ok ? static_cast<size_t>(row) * HD + col : 0), ok);
   }
 }
 
 // The column means of S rows of HD values into out[HD] (shared memory),
 // with all NTHREADS threads of the block: row(s, c0, x) loads columns
-// [c0, c0 + 8) of row s into x as f32. Thread i sums column group
-// i % (HD / 8) over rows i / (HD / 8), + R, ... (R row lanes); the lanes'
-// partials (part: shared, NTHREADS * 8 floats) then add in lane order, so
-// the result depends on S and the values only. Ends with a barrier. The
-// attention kernels write it to a query row that sees no key: the softmax
-// of equal masked logits, as the reference's attention gives it.
+// [c0, c0 + 8) of row s into x as f32. Thread i < R * (HD / 8) sums column
+// group i % (HD / 8) over rows i / (HD / 8), + R, ... (R = NTHREADS /
+// (HD / 8) row lanes; the threads past them idle where HD / 8 does not
+// divide NTHREADS); the lanes' partials (part: shared, NTHREADS * 8
+// floats) then add in lane order, so the result depends on S and the
+// values only. Ends with a barrier. The attention kernels write it to a
+// query row that sees no key: the softmax of equal masked logits, as the
+// reference's attention gives it.
 template <int HD, int NTHREADS, typename Row>
 __device__ __forceinline__ void column_mean(const Row& row, int S,
                                             float* part, float* out) {
   constexpr int CG = HD / 8;  // column groups of 8
-  static_assert(HD % 8 == 0 && NTHREADS % CG == 0, "groups tile the block");
+  static_assert(HD % 8 == 0 && CG <= NTHREADS, "groups fit the block");
   constexpr int R = NTHREADS / CG;
   const int c0 = threadIdx.x % CG * 8, lane = threadIdx.x / CG;
-  float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (lane < R) {
+    float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
-  for (int s = lane; s < S; s += R) {
-    float x[8];
-    row(s, c0, x);
+    for (int s = lane; s < S; s += R) {
+      float x[8];
+      row(s, c0, x);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) a[e] += x[e];
+      for (int e = 0; e < 8; ++e) a[e] += x[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part[lane * HD + c0 + e] = a[e];
   }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) part[lane * HD + c0 + e] = a[e];
   __syncthreads();
   for (int c = threadIdx.x; c < HD; c += NTHREADS) {
     float m = 0.f;
@@ -316,10 +366,11 @@ __device__ __forceinline__ void column_mean(const Row& row, int S,
 
 // RoPE of head-major q (B, H, T, HD) and k (B, KV, T, HD) by the positions
 // pos (B, T) into qr and kr, for thread i of a 1-D grid of
-// B * (H + KV) * T * HD / (2 N) threads: each rotates N = Vec16<T>::N pairs
-// (columns c..c+N-1 and c+HD/2..c+HD/2+N-1) of one row, rows of q first,
-// then rows of k. Each value is widened to f32, rotated and stored in T
-// once, so every kernel that rotates through here gets the same operands.
+// B * (H + KV) * T * HD / (2 N) threads: each rotates N = rope_pairs<T,
+// HD>() pairs (columns c..c+N-1 and c+HD/2..c+HD/2+N-1) of one row, rows
+// of q first, then rows of k. Each value is widened to f32, rotated and
+// stored in T once, so every kernel that rotates through here gets the
+// same operands.
 template <typename T, int HD>
 __device__ __forceinline__ void rope_qk(size_t i, const T* __restrict__ q,
                                         const T* __restrict__ k,
@@ -328,7 +379,7 @@ __device__ __forceinline__ void rope_qk(size_t i, const T* __restrict__ q,
                                         const float* __restrict__ pos, int B,
                                         int H, int KV, int T_,
                                         float log_theta) {
-  constexpr int N = Vec16<T>::N, HALF = HD / 2, CPR = HALF / N;
+  constexpr int N = rope_pairs<T, HD>(), HALF = HD / 2, CPR = HALF / N;
   const size_t q_rows = static_cast<size_t>(B) * H * T_;
   const size_t rows = q_rows + static_cast<size_t>(B) * KV * T_;
   if (i >= rows * CPR) return;
@@ -347,13 +398,13 @@ __device__ __forceinline__ void rope_qk(size_t i, const T* __restrict__ q,
   const size_t b = row / (static_cast<size_t>(nh) * T_);
   const float p = pos[b * T_ + t];
   float x1[N], x2[N];
-  load16(src + row * HD + c, x1);
-  load16(src + row * HD + c + HALF, x2);
+  load_vec<T, N>(src + row * HD + c, x1);
+  load_vec<T, N>(src + row * HD + c + HALF, x2);
 #pragma unroll
   for (int e = 0; e < N; ++e)
     rope_rotate(x1[e], x2[e], p, rope_freq(c + e, HALF, log_theta));
-  store16(dst + row * HD + c, x1);
-  store16(dst + row * HD + c + HALF, x2);
+  store_vec<T, N>(dst + row * HD + c, x1);
+  store_vec<T, N>(dst + row * HD + c + HALF, x2);
 }
 
 }  // namespace port

@@ -56,6 +56,12 @@
 //   phase reads fall into distinct banks. Shared memory: 5 tiles of
 //   64 x (HD + 8) bf16, 87,040 bytes at HD = 128 (2 blocks an SM), 168,960
 //   at HD = 256.
+// - HD = 112 and 120 run on the tiles of 128 (port::padded_width): the
+//   copies zero-fill the columns past HD, so q k^T and p v are unchanged,
+//   only the real columns are stored, and the scale is the real width's
+//   1/sqrt(HD). A bf16 row of 120 is 240 bytes (16-byte chunks stay
+//   aligned); the RoPE pass moves 4 pairs (8 bytes a half) at a time
+//   there, since the second half starts at byte 120 (port::rope_pairs).
 // - s = q k^T with ldmatrix and mma.sync m16n8k16 (bf16 in, f32 out); q's
 //   fragments stay in registers for HD <= 128. The online softmax runs on
 //   the f32 accumulators (a quad of lanes holds a row: two shuffles for its
@@ -245,7 +251,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 constexpr size_t tc_smem_bytes() {  // q, k[2], v[2]
-  return 5 * port::Tile<HD>::BYTES;
+  return 5 * port::Tile<port::padded_width<HD>()>::BYTES;
 }
 
 
@@ -258,11 +264,12 @@ __global__ void __launch_bounds__(TC_THREADS)
                           const int* __restrict__ kv_offsets, int B, int H,
                           int KV, int T_, int S, int causal, int window,
                           float scale) {
-  constexpr int LD = port::Tile<HD>::LD;
-  constexpr int ELEMS = port::Tile<HD>::ELEMS;
-  constexpr int KC = HD / 16;        // k steps of q k^T
-  constexpr int NT = HD / 8;         // n tiles of o
-  constexpr bool QREG = HD <= 128;   // q fragments held in registers
+  constexpr int HP = port::padded_width<HD>();  // tile width
+  constexpr int LD = port::Tile<HP>::LD;
+  constexpr int ELEMS = port::Tile<HP>::ELEMS;
+  constexpr int KC = HP / 16;        // k steps of q k^T
+  constexpr int NT = HP / 8;         // n tiles of o
+  constexpr bool QREG = HP <= 128;   // q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + ELEMS;             // 2 stages
@@ -462,7 +469,7 @@ __global__ void __launch_bounds__(TC_THREADS)
                    : port::pack_bf16(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
   }
   __syncwarp();
-  constexpr int CPR = HD / 8;
+  constexpr int CPR = HD / 8;  // the real columns' 16-byte chunks
   for (int c = lane; c < 16 * CPR; c += 32) {
     const int r = warp * 16 + c / CPR, col = (c % CPR) * 8;
     const int t = q_start + r;
@@ -514,7 +521,7 @@ template <typename T, int HD>
 int launch_rope_pass(const void* q, const void* k, void* rot,
                      const float* pos, int B, int H, int KV, int T_,
                      float log_theta, cudaStream_t stream) {
-  constexpr int PAIRS = port::Vec16<T>::N;  // pairs a thread
+  constexpr int PAIRS = port::rope_pairs<T, HD>();  // pairs a thread
   const long long threads =
       static_cast<long long>(B) * (H + KV) * T_ * (HD / 2 / PAIRS);
   const long long blocks = (threads + ROPE_THREADS - 1) / ROPE_THREADS;
@@ -586,7 +593,7 @@ extern "C" {
 // pos (B, T) f32 positions or null (no RoPE); with pos, S == T and
 // log_theta = log(rope_theta), and `rot` is scratch of B * (H + KV) * T * hd
 // elements of `dtype` for the rotated q and k. window <= 0 means no window.
-// hd is 32, 64, 128 or 256.
+// hd is 32, 64, 112, 120, 128 or 256.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, const int* kv_offsets, const float* pos,
                         void* rot, int B, int H, int KV, int T_, int S,
@@ -602,6 +609,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(dtype, q, k, v, o, lse, kv_offsets, pos, rot, B, H,
                         KV, T_, S, causal, window, scale, log_theta, stream);
+    case 112:
+      return launch<112>(dtype, q, k, v, o, lse, kv_offsets, pos, rot, B, H,
+                         KV, T_, S, causal, window, scale, log_theta, stream);
+    case 120:
+      return launch<120>(dtype, q, k, v, o, lse, kv_offsets, pos, rot, B, H,
+                         KV, T_, S, causal, window, scale, log_theta, stream);
     case 128:
       return launch<128>(dtype, q, k, v, o, lse, kv_offsets, pos, rot, B, H,
                          KV, T_, S, causal, window, scale, log_theta, stream);

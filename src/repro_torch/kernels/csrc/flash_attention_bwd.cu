@@ -61,10 +61,18 @@
 //   heads and visible q blocks stream through two stages. Warp (g, c)
 //   computes s^T = k q^T and dp^T = v do^T for keys 16g..16g+15 and queries
 //   32c..32c+31, then p^T and ds^T, which go to shared memory in bf16; then
-//   dv += p^T do and dk += ds^T q for its 16 keys and the n tiles
-//   {half * HD/16 + c * HD/32 + j}, so that column j and j + HD/2 (a RoPE
-//   pair) stay in one thread. 123,904 bytes at HD = 128 (1 block an SM);
-//   165 registers (166 with RoPE), no spills.
+//   dv += p^T do and dk += ds^T q for its 16 keys and half c of the
+//   columns. dk and dv are staged in f32 through the free q and do stages
+//   and stored a column pair (j, j + HD/2) at a time, dk rotated back by
+//   -pos there (RoPE), as dq is. 123,904 bytes at HD = 128 (1 block an
+//   SM).
+// - HD = 112 and 120 run on tiles of 128 columns (port::padded_width): the
+//   columns past HD are zero-filled by the copies, so every product is
+//   unchanged, and only the HD real columns are stored; 1/sqrt(HD) is the
+//   real width's. A bf16 row of 120 is 240 bytes, so rows stay 16-byte
+//   aligned for the copies, but its halves are not: the RoPE pass and the
+//   epilogues move 4 column pairs (8 bytes a half) at a time there
+//   (port::rope_pairs).
 // HD = 256 is not taken: its dk and dv accumulators would not fit in the
 // registers without spills.
 //
@@ -80,7 +88,9 @@
 //   walks the key blocks of its band, as the forward does, recomputing p
 //   and ds; four threads own one query row.
 // Tiles are staged as f32 in shared memory, rows padded by one float: 4
-// tiles of 64 x (HD + 1), 132 KB at HD = 128, so HD <= 128.
+// tiles of 64 x (HD + 1), 132 KB at HD = 128, so HD <= 128; any HD that
+// is a multiple of 8 (four threads a row, each HD/4 columns, RoPE pairs
+// (qtr + 4i, qtr + 4i + HD/2) in one thread).
 
 #include <math.h>
 
@@ -129,7 +139,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
     flash_bwd_delta_kernel(const T* __restrict__ o,
                            const T* __restrict__ dout,
                            float* __restrict__ delta, size_t rows) {
-  constexpr int C = HD / 32;
+  constexpr int C = (HD + 31) / 32;  // columns a lane (the last may be short)
   const size_t row = static_cast<size_t>(blockIdx.x) * ROW_WARPS +
                      (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform across the warp
@@ -137,6 +147,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
   float acc = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
+    if (HD % 32 != 0 && lane + 32 * c >= HD) break;
     const size_t at = row * HD + lane + 32 * c;
     acc = fmaf(to_f(dout[at]), to_f(o[at]), acc);
   }
@@ -394,14 +405,56 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {  // q, do, k[2], v[2], delta
-  return 6 * port::Tile<HD>::BYTES + sizeof(float) * BQ;
+  return 6 * port::Tile<port::padded_width<HD>()>::BYTES +
+         sizeof(float) * BQ;
 }
 
 template <int HD>
 constexpr size_t dkv_smem_bytes() {
   // k, v, q[2], do[2], p^T, ds^T, lse[2], delta[2]
-  return 6 * port::Tile<HD>::BYTES + 2 * sizeof(bf16) * BK * PLD +
-         sizeof(float) * 4 * BQ;
+  return 6 * port::Tile<port::padded_width<HD>()>::BYTES +
+         2 * sizeof(bf16) * BK * PLD + sizeof(float) * 4 * BQ;
+}
+
+// Rows r0 + r (r < n, r += step from r_first) of an f32 tile (row stride
+// FLD) into bf16 rows base_row + r of dst (HD columns a row), a thread
+// taking CP column pairs (c, c + HD/2) at a time, CP = rope_pairs: with
+// ROPE each pair is first rotated back by -pos of its row (posb[base_row +
+// r]). Rows at or past `limit` (T or S) are not stored. Each half's CP
+// columns are read as 16-byte vectors (src and FLD keep them aligned: FLD
+// is a multiple of 4 floats, and so is HD/2) and stored as one aligned
+// vector.
+template <int HD, bool ROPE>
+__device__ __forceinline__ void store_pair_rows(
+    const float* src, int fld, int r0, int n, int r_first, int step,
+    int base_row, int limit, bf16* __restrict__ dst, size_t dst_row0,
+    const float* posb, float log_theta) {
+  constexpr int HALF = HD / 2, CP = port::rope_pairs<bf16, HD>();
+  constexpr int CPH = HALF / CP;  // pair chunks a row
+  static_assert(CP % 4 == 0 && HALF % 4 == 0, "16-byte f32 reads");
+  for (int i = r_first; i < n * CPH; i += step) {
+    const int r = r0 + i / CPH, c = (i % CPH) * CP;
+    const int t = base_row + r;
+    if (t >= limit) continue;
+    float x1[CP], x2[CP];
+#pragma unroll
+    for (int e = 0; e < CP; e += 4) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(src + r * fld + c + e);
+      const float4 b =
+          *reinterpret_cast<const float4*>(src + r * fld + c + HALF + e);
+      x1[e] = a.x, x1[e + 1] = a.y, x1[e + 2] = a.z, x1[e + 3] = a.w;
+      x2[e] = b.x, x2[e + 1] = b.y, x2[e + 2] = b.z, x2[e + 3] = b.w;
+    }
+    if constexpr (ROPE) {
+#pragma unroll
+      for (int e = 0; e < CP; ++e)
+        port::rope_pair(x1[e], x2[e], -posb[t], c + e, HALF, log_theta);
+    }
+    bf16* row = dst + (dst_row0 + t) * HD;
+    port::store_vec<bf16, CP>(row + c, x1);
+    port::store_vec<bf16, CP>(row + c + HALF, x2);
+  }
 }
 
 // dq, and delta = rowsum(do * o) for the block's rows on the way (written
@@ -419,10 +472,11 @@ __global__ void __launch_bounds__(DQ_THREADS)
                              const float* __restrict__ pos, int B, int H,
                              int KV, int T_, int S, int causal, int window,
                              float scale, float log_theta) {
-  constexpr int LD = port::Tile<HD>::LD;
-  constexpr int ELEMS = port::Tile<HD>::ELEMS;
-  constexpr int KC = HD / 16;  // k steps of q k^T and do v^T
-  constexpr int NT = HD / 8;   // n tiles of dq
+  constexpr int HP = port::padded_width<HD>();  // tile width
+  constexpr int LD = port::Tile<HP>::LD;
+  constexpr int ELEMS = port::Tile<HP>::ELEMS;
+  constexpr int KC = HP / 16;  // k steps of q k^T and do v^T
+  constexpr int NT = HP / 8;   // n tiles of dq
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dos = qs + ELEMS;
@@ -459,17 +513,19 @@ __global__ void __launch_bounds__(DQ_THREADS)
   }
   port::cp_async_commit();
 
-  {  // delta under the copies: two threads a row, HD / 2 columns each
+  {  // delta under the copies: two threads a row, each half of the
+     // row's 16-byte chunks (the first thread the extra one of an odd count)
+    constexpr int CH = HD / 8, CH0 = (CH + 1) / 2;
     const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
     const int t = q_start + r;
     float acc = 0.f;
     if (t < T_) {
-      const size_t at = (q_base + t) * HD + part * (HD / 2);
+      const size_t at = (q_base + t) * HD;
 #pragma unroll
-      for (int c = 0; c < HD / 2; c += 8) {
+      for (int ch = part * CH0; ch < (part ? CH : CH0); ++ch) {
         float ov[8], dv[8];
-        port::load16(o + at + c, ov);
-        port::load16(dout + at + c, dv);
+        port::load16(o + at + ch * 8, ov);
+        port::load16(dout + at + ch * 8, dv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc = fmaf(dv[e], ov[e], acc);
       }
@@ -581,11 +637,11 @@ __global__ void __launch_bounds__(DQ_THREADS)
   __syncthreads();
 
   // epilogue: dq * scale staged in f32 through the q and do tiles (no
-  // longer read), this warp's 16 rows at a stride of HD + 4 floats; then,
-  // the accumulators dead, each lane rotates 8 column pairs (c, c + HD/2)
-  // of a row back by -pos (RoPE) and stores them as bf16, 16 bytes a store
-  constexpr int FLD = HD + 4;
-  static_assert(BQ * FLD * sizeof(float) <= 2 * port::Tile<HD>::BYTES,
+  // longer read), this warp's 16 rows at a stride of HP + 4 floats; then,
+  // the accumulators dead, each lane rotates column pairs (c, c + HD/2)
+  // of a row back by -pos (RoPE) and stores them as bf16
+  constexpr int FLD = HP + 4;
+  static_assert(BQ * FLD * sizeof(float) <= 2 * port::Tile<HP>::BYTES,
                 "the f32 dq tile fits in the q and do tiles");
   float* dqs = reinterpret_cast<float*>(qs);
 #pragma unroll
@@ -597,25 +653,8 @@ __global__ void __launch_bounds__(DQ_THREADS)
         make_float2(dqacc[n][2] * scale, dqacc[n][3] * scale);
   }
   __syncwarp();
-  constexpr int HALF = HD / 2, CPH = HALF / 8;  // 8-pair chunks a row
-  for (int i = lane; i < 16 * CPH; i += 32) {
-    const int r = warp * 16 + i / CPH, c = (i % CPH) * 8;
-    const int t = q_start + r;
-    if (t >= T_) continue;
-    float x1[8], x2[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      x1[e] = dqs[r * FLD + c + e];
-      x2[e] = dqs[r * FLD + c + HALF + e];
-    }
-    if constexpr (ROPE) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        port::rope_pair(x1[e], x2[e], -posb[t], c + e, HALF, log_theta);
-    }
-    port::store16(dq + (q_base + t) * HD + c, x1);
-    port::store16(dq + (q_base + t) * HD + c + HALF, x2);
-  }
+  store_pair_rows<HD, ROPE>(dqs, FLD, warp * 16, 16, lane, 32, q_start, T_,
+                            dq, q_base, posb, log_theta);
 }
 
 // dk and dv of one key block, summed over its GQA group in a fixed order.
@@ -632,11 +671,12 @@ __global__ void __launch_bounds__(DKV_THREADS)
                               const float* __restrict__ pos, int B, int H,
                               int KV, int T_, int S, int causal, int window,
                               float scale, float log_theta) {
-  constexpr int LD = port::Tile<HD>::LD;
-  constexpr int ELEMS = port::Tile<HD>::ELEMS;
-  constexpr int KC = HD / 16;  // k steps of k q^T and v do^T
-  constexpr int NT = HD / 8;   // n tiles of dk, dv
-  constexpr int NW = NT / 4;   // n tiles a warp holds in each half of HD
+  constexpr int HP = port::padded_width<HD>();  // tile width
+  constexpr int LD = port::Tile<HP>::LD;
+  constexpr int ELEMS = port::Tile<HP>::ELEMS;
+  constexpr int KC = HP / 16;  // k steps of k q^T and v do^T
+  constexpr int NT = HP / 8;   // n tiles of dk, dv
+  constexpr int NW = NT / 2;   // n tiles a warp holds: its half of HP
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + ELEMS;
@@ -691,9 +731,9 @@ __global__ void __launch_bounds__(DKV_THREADS)
   port::cp_async_commit();
 
   const float sl2 = scale * LOG2E;
-  float dkacc[NT / 2][4], dvacc[NT / 2][4];
+  float dkacc[NW][4], dvacc[NW][4];
 #pragma unroll
-  for (int n = 0; n < NT / 2; ++n)
+  for (int n = 0; n < NW; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.f;
 
@@ -771,8 +811,7 @@ __global__ void __launch_bounds__(DKV_THREADS)
     __syncthreads();
 
     // dv += p^T do and dk += ds^T q over the 64 queries: the warp's 16 keys
-    // x its n tiles {half * NT/2 + ch * NW + j}, so that column c and
-    // c + HD/2 (a RoPE pair) stay in one thread
+    // x the n tiles of its half of the columns, ch * NW + j
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       uint32_t ap[4], ad[4];
@@ -782,28 +821,15 @@ __global__ void __launch_bounds__(DKV_THREADS)
       port::ldsm_x4(ad, dss + a_off);
       const int b_row = (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        if constexpr (NW >= 2) {
-#pragma unroll
-          for (int j = 0; j < NW; j += 2) {
-            const int col = (half * (NT / 2) + ch * NW + j) * 8 +
-                            (lane >> 4) * 8;
-            uint32_t bd[4], bq[4];
-            port::ldsm_x4_trans(bd, dost + b_row + col);
-            port::ldsm_x4_trans(bq, qst + b_row + col);
-            port::mma_bf16(dvacc[half * NW + j], ap, bd[0], bd[1]);
-            port::mma_bf16(dvacc[half * NW + j + 1], ap, bd[2], bd[3]);
-            port::mma_bf16(dkacc[half * NW + j], ad, bq[0], bq[1]);
-            port::mma_bf16(dkacc[half * NW + j + 1], ad, bq[2], bq[3]);
-          }
-        } else {
-          const int col = (half * (NT / 2) + ch) * 8;
-          uint32_t bd[2], bq[2];
-          port::ldsm_x2_trans(bd, dost + b_row + col);
-          port::ldsm_x2_trans(bq, qst + b_row + col);
-          port::mma_bf16(dvacc[half], ap, bd[0], bd[1]);
-          port::mma_bf16(dkacc[half], ad, bq[0], bq[1]);
-        }
+      for (int j = 0; j < NW; j += 2) {
+        const int col = (ch * NW + j) * 8 + (lane >> 4) * 8;
+        uint32_t bd[4], bq[4];
+        port::ldsm_x4_trans(bd, dost + b_row + col);
+        port::ldsm_x4_trans(bq, qst + b_row + col);
+        port::mma_bf16(dvacc[j], ap, bd[0], bd[1]);
+        port::mma_bf16(dvacc[j + 1], ap, bd[2], bd[3]);
+        port::mma_bf16(dkacc[j], ad, bq[0], bq[1]);
+        port::mma_bf16(dkacc[j + 1], ad, bq[2], bq[3]);
       }
     }
     __syncthreads();  // p^T, ds^T and stage st are read
@@ -811,49 +837,33 @@ __global__ void __launch_bounds__(DKV_THREADS)
   port::cp_async_wait<0>();
   __syncthreads();
 
-  // epilogue: dk * scale (rotated back by -pos), staged through ks and vs
+  // epilogue: dk * scale and dv staged in f32 through the q and do stages
+  // (no longer read) at a stride of HP + 4 floats; then each thread takes
+  // column pairs (c, c + HD/2) of a key row, rotates dk's back by -pos
+  // (RoPE) and stores both as bf16
+  constexpr int FLD = HP + 4;
+  static_assert(2 * BK * FLD * sizeof(float) <= 4 * port::Tile<HP>::BYTES,
+                "the f32 dk and dv tiles fit in the q and do stages");
+  float* dks = reinterpret_cast<float*>(qs);
+  float* dvs = dks + BK * FLD;
+  const int r = kg * 16 + grp;
 #pragma unroll
-  for (int n = 0; n < NT / 2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[n][e] *= scale;
-  if constexpr (ROPE) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int s = k_start + kg * 16 + grp + (e >> 1) * 8;
-        if (s < S)
-          port::rope_pair(dkacc[j][e], dkacc[NW + j][e], -posb[s],
-                          (ch * NW + j) * 8 + 2 * tq + (e & 1), HD / 2,
-                          log_theta);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < NT / 2; ++i) {
-    const int c = ((i / NW) * (NT / 2) + ch * NW + i % NW) * 8 + 2 * tq;
-    const int r = kg * 16 + grp;
-    *reinterpret_cast<uint32_t*>(ks + r * LD + c) =
-        port::pack_bf16(dkacc[i][0], dkacc[i][1]);
-    *reinterpret_cast<uint32_t*>(ks + (r + 8) * LD + c) =
-        port::pack_bf16(dkacc[i][2], dkacc[i][3]);
-    *reinterpret_cast<uint32_t*>(vs + r * LD + c) =
-        port::pack_bf16(dvacc[i][0], dvacc[i][1]);
-    *reinterpret_cast<uint32_t*>(vs + (r + 8) * LD + c) =
-        port::pack_bf16(dvacc[i][2], dvacc[i][3]);
+  for (int j = 0; j < NW; ++j) {
+    const int c = (ch * NW + j) * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(dks + r * FLD + c) =
+        make_float2(dkacc[j][0] * scale, dkacc[j][1] * scale);
+    *reinterpret_cast<float2*>(dks + (r + 8) * FLD + c) =
+        make_float2(dkacc[j][2] * scale, dkacc[j][3] * scale);
+    *reinterpret_cast<float2*>(dvs + r * FLD + c) =
+        make_float2(dvacc[j][0], dvacc[j][1]);
+    *reinterpret_cast<float2*>(dvs + (r + 8) * FLD + c) =
+        make_float2(dvacc[j][2], dvacc[j][3]);
   }
   __syncthreads();
-  constexpr int CPR = HD / 8;
-  for (int c = tid; c < BK * CPR; c += DKV_THREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int s = k_start + r;
-    if (s < S) {
-      const size_t at = (kv_base + s) * HD + col;
-      *reinterpret_cast<uint4*>(dk + at) =
-          *reinterpret_cast<const uint4*>(ks + r * LD + col);
-      *reinterpret_cast<uint4*>(dv + at) =
-          *reinterpret_cast<const uint4*>(vs + r * LD + col);
-    }
-  }
+  store_pair_rows<HD, ROPE>(dks, FLD, 0, BK, tid, DKV_THREADS, k_start, S,
+                            dk, kv_base, posb, log_theta);
+  store_pair_rows<HD, false>(dvs, FLD, 0, BK, tid, DKV_THREADS, k_start, S,
+                             dv, kv_base, nullptr, 0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -881,7 +891,7 @@ template <typename T, int HD>
 int launch_rope_pass(const void* q, const void* k, void* rot,
                      const float* pos, int B, int H, int KV, int T_,
                      float log_theta, cudaStream_t stream) {
-  constexpr int PAIRS = port::Vec16<T>::N;  // pairs a thread
+  constexpr int PAIRS = port::rope_pairs<T, HD>();  // pairs a thread
   const long long threads =
       static_cast<long long>(B) * (H + KV) * T_ * (HD / 2 / PAIRS);
   const long long blocks = (threads + ROPE_THREADS - 1) / ROPE_THREADS;
@@ -1037,7 +1047,7 @@ extern "C" {
 // k are the UNROTATED inputs, rotated inside, and dq, dk are returned for
 // them; log_theta = log(rope_theta); for bf16 `rot` is scratch of
 // B * (H + KV) * T * hd bf16 for the rotated q and k. window <= 0 means no
-// window. hd is 32, 64 or 128.
+// window. hd is 32, 64, 112, 120 or 128.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const float* lse, const void* dout,
                         void* dq, void* dk, void* dv, float* delta,
@@ -1057,6 +1067,14 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
       return launch_hd<64>(dtype, q, k, v, o, lse, dout, dq, dk, dv,
                            delta, pos, rot, B, H, KV, T_, S, causal,
                            window, scale, log_theta, stream);
+    case 112:
+      return launch_hd<112>(dtype, q, k, v, o, lse, dout, dq, dk, dv,
+                            delta, pos, rot, B, H, KV, T_, S, causal,
+                            window, scale, log_theta, stream);
+    case 120:
+      return launch_hd<120>(dtype, q, k, v, o, lse, dout, dq, dk, dv,
+                            delta, pos, rot, B, H, KV, T_, S, causal,
+                            window, scale, log_theta, stream);
     case 128:
       return launch_hd<128>(dtype, q, k, v, o, lse, dout, dq, dk, dv,
                             delta, pos, rot, B, H, KV, T_, S, causal,

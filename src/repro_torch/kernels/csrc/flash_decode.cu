@@ -117,6 +117,8 @@ int dispatch_hd(int hd, int g, const void* q, const void* k, const void* v,
   switch (hd) {
     PORT_DECODE_HD(32)
     PORT_DECODE_HD(64)
+    PORT_DECODE_HD(112)
+    PORT_DECODE_HD(120)
     PORT_DECODE_HD(128)
     PORT_DECODE_HD(256)
     default:
@@ -145,6 +147,8 @@ int flash_decode_chunk_slots(int hd, int esize) {
   switch (hd) {
     case 32: return chunk_slots<32>(esize);
     case 64: return chunk_slots<64>(esize);
+    case 112: return chunk_slots<112>(esize);
+    case 120: return chunk_slots<120>(esize);
     case 128: return chunk_slots<128>(esize);
     case 256: return chunk_slots<256>(esize);
     default: return 0;
@@ -153,7 +157,8 @@ int flash_decode_chunk_slots(int hd, int esize) {
 
 // q (B, H, hd); k, v (B, KV, S, hd); o like q; all of `dtype`, contiguous.
 // pos_rows (B,) int32 or null (then every row is at pos_scalar); offsets
-// (B,) int32 or null. window <= 0 means none. hd is 32, 64, 128 or 256;
+// (B,) int32 or null. window <= 0 means none. hd is 32, 64, 112, 120, 128
+// or 256;
 // H / KV is 1, 2, 4, 8 or 16 with (H / KV) * hd <= 1024.
 int flash_decode_fwd(const void* q, const void* k, const void* v, void* o,
                      const int* pos_rows, int pos_scalar, const int* offsets,

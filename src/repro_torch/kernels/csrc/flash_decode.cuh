@@ -5,14 +5,17 @@
 // Split-KV over a thread block cluster. The slots of one (kv head, row)
 // split into chunks of Chunk::SLOTS consecutive logical slot indices: 64,
 // fewer where a chunk's keys would pass kChunkBytes (8 KB: 32 slots of a
-// bf16 row of 128, 16 of an f32 one). A cluster of CL = 8 blocks of 128
+// bf16 row of 128, 16 of an f32 one), always a power of two (32 of a bf16
+// row of 120, not 34), so that a left pad that is a multiple of 64 slots
+// moves the chunk boundaries with the row's first slot. A cluster of CL = 8 blocks of 128
 // threads handles one (kv head, row): the grid is (CL, KV, B). Cluster
 // rank r takes the chunks r, r + CL, r + 2 CL, ... that meet the row's
 // visible slots [s_lo, s_hi), in ascending order; a chunk wholly outside
 // that range is never touched.
 //
 // Bytes in flight. A block copies a chunk's keys and values into shared
-// memory as 16-byte cp.async copies, all of the chunk's copies issued at
+// memory as 16-byte cp.async copies (8-byte ones for an int8 row of 120,
+// whose rows are only 8-byte aligned), all of the chunk's copies issued at
 // once, two chunks in flight (STAGES): the next chunk arrives while the
 // current one is computed. A slot that is not visible is zero-filled, not
 // read. The paged source reads the block-table entries of a chunk once,
@@ -66,28 +69,41 @@ constexpr int MAX_GHD = 1024;  // G * HD: query rows of a group times width
 constexpr int kChunkBytes = 8192;  // most bytes of a chunk's keys
 constexpr int kScaleCopy = 16;     // bytes of an int8 pool's scale copy
 
-// A chunk of slots whose rows are HD elements of ESIZE bytes.
+__host__ __device__ constexpr int floor_pow2(int n) {
+  int p = 1;
+  while (2 * p <= n) p *= 2;
+  return p;
+}
+
+// A chunk of slots whose rows are HD elements of ESIZE bytes. A row is
+// copied in 16-byte units, or in 8-byte ones where its bytes are not a
+// multiple of 16 (an int8 row of 120: row r starts at byte 120 r, only
+// 8-byte aligned; the pool keeps the reference's layout, unpadded).
 template <int HD, int ESIZE>
 struct Chunk {
   static constexpr int ROW = HD * ESIZE;  // bytes of one slot's key (value)
-  static constexpr int SLOTS = ROW * 64 <= kChunkBytes ? 64
-                                                        : kChunkBytes / ROW;
+  static_assert(ROW % 8 == 0, "rows are whole 8-byte units");
+  static constexpr int SLOTS = floor_pow2(
+      ROW * 64 <= kChunkBytes ? 64 : kChunkBytes / ROW);
   static constexpr int LD = ROW + 16;  // shared row stride: 16 bytes of pad,
                                        // so 8 rows at one column miss banks
-  static constexpr int UNITS = ROW / 16;  // 16-byte copies a row
+  static constexpr int UNIT = ROW % 16 == 0 ? 16 : 8;  // bytes a copy
+  static constexpr int UNITS = ROW / UNIT;              // copies a row
 };
 
 constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
 // P.V: a thread holds CPT consecutive output columns of one query row for
 // one of NG slot groups (slots g, g + NG, ...); TG threads cover a slot.
+// Where TG does not divide the block (HD = 112 or 120: TG = 14 G or 15 G),
+// the THREADS - NG * TG threads past the last whole group take no part.
 constexpr int CPT = 8;
 
 template <int HD, int G>
 struct PV {
   static constexpr int TG = G * HD / CPT;  // 4 .. 128
   static constexpr int NG = THREADS / TG;
-  static_assert(THREADS % TG == 0, "slot groups tile the block");
+  static_assert(HD % CPT == 0 && TG <= THREADS, "a slot group fits");
 };
 
 // Byte offsets into the block's dynamic shared memory.
@@ -130,6 +146,31 @@ __device__ __forceinline__ void unpack16(const unsigned char* p,
 #pragma unroll
   for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i)
     v[i] = load_f(e[i]);
+}
+
+// UNIT (16 or 8) bytes of shared memory, aligned to UNIT, as f32 values.
+template <typename T, int UNIT>
+__device__ __forceinline__ void unpack(const unsigned char* p,
+                                       float (&v)[UNIT / sizeof(T)]) {
+  if constexpr (UNIT == 16) {
+    unpack16<T>(p, v);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < UNIT / static_cast<int>(sizeof(T)); ++i)
+      v[i] = load_f(e[i]);
+  }
+}
+
+// UNIT (16 or 8) bytes global -> shared, asynchronously.
+template <int UNIT>
+__device__ __forceinline__ void cp_async_unit(void* dst, const void* src,
+                                              bool valid) {
+  if constexpr (UNIT == 16)
+    cp_async16(dst, src, valid);
+  else
+    cp_async8(dst, src, valid);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -182,20 +223,20 @@ struct ContiguousSlots {
     for (int e = 0; e < 8; ++e) x[e] = load_f(p[e]);
   }
 
-  // Copies slots [s0, s0 + N) into the stage as 16-byte copies: slot i's
-  // key row at kd + i * LD. A slot that `vis` rejects is zero-filled, not
-  // read (its copy names row 0, any mapped address).
-  template <int N, int UNITS, int LD, typename Vis>
+  // Copies slots [s0, s0 + N) into the stage as UNIT-byte copies: slot
+  // i's key row at kd + i * LD. A slot that `vis` rejects is zero-filled,
+  // not read (its copy names row 0, any mapped address).
+  template <int N, int UNIT, int UNITS, int LD, typename Vis>
   __device__ __forceinline__ void issue(unsigned char* kd, unsigned char* vd,
                                         float*, float*, const int*, int s0,
                                         int, Vis vis) const {
-    constexpr int EPU = 16 / sizeof(T);
+    constexpr int EPU = UNIT / sizeof(T);
     for (int idx = threadIdx.x; idx < N * UNITS; idx += THREADS) {
       const int i = idx / UNITS, u = idx % UNITS;
       const bool ok = vis(s0 + i);
       const size_t at = (row + (ok ? s0 + i : 0)) * (UNITS * EPU) + u * EPU;
-      cp_async16(kd + i * LD + u * 16, k + at, ok);
-      cp_async16(vd + i * LD + u * 16, v + at, ok);
+      cp_async_unit<UNIT>(kd + i * LD + u * UNIT, k + at, ok);
+      cp_async_unit<UNIT>(vd + i * LD + u * UNIT, v + at, ok);
     }
   }
 };
@@ -253,20 +294,20 @@ struct PagedSlots {
   // pool's scales arrive 4 slots of one page a 16-byte copy (wide_scales;
   // a copy with one visible slot reads all four, and the body ignores the
   // scales of slots it does not see), else a 4-byte copy a slot.
-  template <int N, int UNITS, int LD, typename Vis>
+  template <int N, int UNIT, int UNITS, int LD, typename Vis>
   __device__ __forceinline__ void issue(unsigned char* kd, unsigned char* vd,
                                         float* ksd, float* vsd,
                                         const int* tab, int s0, int first,
                                         Vis vis) const {
-    constexpr int EPU = 16 / sizeof(T);
+    constexpr int EPU = UNIT / sizeof(T);
     const int p0 = first / ps;
     for (int idx = threadIdx.x; idx < N * UNITS; idx += THREADS) {
       const int i = idx / UNITS, u = idx % UNITS;
       const bool ok = vis(s0 + i);
       const size_t at = pool_row(tab, s0 + i, p0, ok) * (UNITS * EPU) +
                         u * EPU;
-      cp_async16(kd + i * LD + u * 16, k + at, ok);
-      cp_async16(vd + i * LD + u * 16, v + at, ok);
+      cp_async_unit<UNIT>(kd + i * LD + u * UNIT, k + at, ok);
+      cp_async_unit<UNIT>(vd + i * LD + u * UNIT, v + at, ok);
     }
     if constexpr (kScaled) {
       if (wide_scales) {
@@ -308,7 +349,8 @@ __device__ __forceinline__ void decode_cluster(
   using L = Smem<HD, sizeof(T), G, Slots::kScaled, Slots::kPaged>;
   constexpr int N = C::SLOTS;
   constexpr int LD = C::LD;
-  constexpr int EPU = 16 / sizeof(T);  // elements of a 16-byte unit
+  constexpr int UNIT = C::UNIT;
+  constexpr int EPU = UNIT / sizeof(T);  // elements of a copy unit
   constexpr int GHD = G * HD;
   constexpr int NG = PV<HD, G>::NG;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -369,7 +411,7 @@ __device__ __forceinline__ void decode_cluster(
   const auto issue = [&](int j) {  // chunk j into stage j % STAGES
     if (j < n_mine) {
       const int st = j % STAGES;
-      slots.template issue<N, C::UNITS, LD>(
+      slots.template issue<N, UNIT, C::UNITS, LD>(
           kb + st * N * LD, vb + st * N * LD, ksc + st * N, vsc + st * N,
           tab + st * N, (c_first + j * CL) * N, first_of(j), visible);
     }
@@ -406,7 +448,7 @@ __device__ __forceinline__ void decode_cluster(
 
   // this thread's part of P.V: columns [c0, c0 + CPT) of query row r over
   // the slots of group g (g, g + NG, ...)
-  const int g = tid / PV<HD, G>::TG;
+  const int g = tid / PV<HD, G>::TG;  // NG: past the last whole group
   const int r = tid % PV<HD, G>::TG / (HD / CPT);
   const int c0 = tid % (HD / CPT) * CPT;
   float acc[CPT];
@@ -433,7 +475,7 @@ __device__ __forceinline__ void decode_cluster(
 #pragma unroll 4
       for (int u = 0; u < C::UNITS; ++u) {
         float kk[EPU];
-        unpack16<T>(krow + u * 16, kk);
+        unpack<T, UNIT>(krow + u * UNIT, kk);
 #pragma unroll
         for (int e = 0; e < EPU; e += 4) {
           const float4 q4 = *reinterpret_cast<const float4*>(qr + u * EPU + e);
@@ -485,15 +527,17 @@ __device__ __forceinline__ void decode_cluster(
     const float* prow = lg + r * N;
     const unsigned char* vst =
         vb + st * N * LD + c0 * static_cast<int>(sizeof(T));
+    if (g < NG) {
 #pragma unroll
-    for (int t = 0; t < (N + NG - 1) / NG; ++t) {
-      const int i = g + t * NG;
-      if (N % NG != 0 && i >= N) break;
-      const float w = prow[i];
-      float vv[CPT];
-      load8<T>(vst + i * LD, vv);
+      for (int t = 0; t < (N + NG - 1) / NG; ++t) {
+        const int i = g + t * NG;
+        if (N % NG != 0 && i >= N) break;
+        const float w = prow[i];
+        float vv[CPT];
+        load8<T>(vst + i * LD, vv);
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[e] = fmaf(w, vv[e], acc[e]);
+        for (int e = 0; e < CPT; ++e) acc[e] = fmaf(w, vv[e], acc[e]);
+      }
     }
     __syncthreads();  // stage st and the probabilities are free again
 
@@ -509,8 +553,10 @@ __device__ __forceinline__ void decode_cluster(
   // the block's partial: the slot groups' acc summed in group order
   // (through the key and value stages: every copy has landed)
   float* gacc = reinterpret_cast<float*>(kb);  // NG x GHD
+  if (g < NG) {
 #pragma unroll
-  for (int e = 0; e < CPT; ++e) gacc[g * GHD + r * HD + c0 + e] = acc[e];
+    for (int e = 0; e < CPT; ++e) gacc[g * GHD + r * HD + c0 + e] = acc[e];
+  }
   __syncthreads();
   // into slot `rank` of rank 0's inbox: m[G], l[G], acc[GHD]
   cluster_wait();

@@ -127,6 +127,8 @@ int dispatch_hd(int hd, int g, const Args& a) {
   switch (hd) {
     case 32: return dispatch_g<Q, T, 32>(g, a);
     case 64: return dispatch_g<Q, T, 64>(g, a);
+    case 112: return dispatch_g<Q, T, 112>(g, a);
+    case 120: return dispatch_g<Q, T, 120>(g, a);
     case 128: return dispatch_g<Q, T, 128>(g, a);
     case 256: return dispatch_g<Q, T, 256>(g, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -141,8 +143,8 @@ extern "C" {
 // when kv_int8 (then ks, vs (pages, KV, ps) f32, else null); pt (B, NB)
 // int32; o like q; all contiguous. pos_rows (B,) int32 or null (then every
 // row is at pos_scalar); offsets (B,) int32 or null. window <= 0 means
-// none. hd is 32, 64, 128 or 256; H / KV is 1, 2, 4, 8 or 16 with
-// (H / KV) * hd <= 1024.
+// none. hd is 32, 64, 112, 120, 128 or 256; H / KV is 1, 2, 4, 8 or 16
+// with (H / KV) * hd <= 1024.
 int flash_decode_paged_fwd(const void* q, const void* kp, const void* vp,
                            const float* ks, const float* vs, const int* pt,
                            void* o, const int* pos_rows, int pos_scalar,

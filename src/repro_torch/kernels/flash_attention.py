@@ -42,7 +42,10 @@ it launches the kernel or raises. The kernels' limits: every operand of
 one dtype (f32 or bf16), contiguous, ``hd`` in ``HEAD_DIMS`` (the
 backward: ``BWD_HEAD_DIMS``; its f32 tiles must fit in shared memory and
 its bf16 accumulators in registers), ``H % KV == 0``; bf16 operands
-16-byte aligned (the tensor-core bodies copy 16-byte chunks).
+16-byte aligned (the tensor-core bodies copy 16-byte chunks). Widths 112
+and 120 (kimi-k2, h2o-danube-3-4b) run in the kernels themselves: the
+bf16 bodies on tiles of 128 columns whose columns past the width are
+zeros, never stored, the scale the real width's 1/sqrt(hd).
 """
 from __future__ import annotations
 
@@ -58,8 +61,8 @@ Tensor = torch.Tensor
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_rope": 0,
                             "flash_attention_backward": 0}
-HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 120, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 112, 120, 128)
 
 _SIGNATURES = {"flash_attention_fwd": [L.P] * 8 + [L.I] * 8
                + [L.F, L.F, L.I, L.P]}

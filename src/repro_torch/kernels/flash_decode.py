@@ -26,7 +26,8 @@ host. On a CPU tensor the wrapper computes its plain version
 launches the kernel or raises. The kernel's limits: q, k, v of one dtype
 (f32 or bf16), contiguous, ``hd`` in ``HEAD_DIMS``, a GQA group
 ``H // KV`` in ``GROUPS`` with ``(H // KV) * hd <= MAX_GROUP_WIDTH``, k and v
-16-byte aligned (the kernel copies 16-byte units).
+16-byte aligned (the kernel copies 16-byte units; an int8 pool of width
+120, whose rows are 120 bytes, 8-byte ones).
 
 ``flash_decode_paged`` replaces
 ``src/repro/kernels/flash_decode.py:flash_decode_paged_pallas``: the same
@@ -50,7 +51,7 @@ from repro_torch.kernels.ref import slot_visibility  # noqa: F401 (re-export)
 Tensor = torch.Tensor
 
 launches: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 120, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
 MAX_GROUP_WIDTH = 1024
 

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from test_torch_moe import _check_routing, _port_routing, _reference_routing
 
 from repro.configs.registry import get_config as jget_config
@@ -112,7 +113,10 @@ def test_registry_covers_the_reference():
 def test_reduced_shapes_exercise_the_paths():
     """What the tests below rely on: jamba's reduced stack holds ssm, attn,
     dense and MoE layers; gemma3's ends in a local layer; every reduced
-    head width is one the kernels take (h2o-danube's full 120 is not)."""
+    head width is 64, and h2o-danube's full one is 120 (that every
+    registry width is one the kernels take is the kernel-tile contract of
+    repro_torch.analysis; tests/test_torch_head_widths.py holds 112 and
+    120 to the reference)."""
     jamba = get_config("jamba-v0.1-52b-reduced")
     assert {(s.mixer, s.ff) for s in jamba.layers} == {
         ("ssm", "dense"), ("ssm", "moe"), ("attn", "dense")}
@@ -173,7 +177,8 @@ def test_forward_logits_match_reference(arch):
     """Logits over 40 tokens (past gemma3's reduced window of 16)."""
     jcfg, tcfg, jp, tp = _model(arch)
     toks = _tokens((2, 40), tcfg.vocab_size, 5)
-    jl, _ = JT.forward(jp, jcfg, jnp.asarray(toks))
+    jl, _ = jax.jit(lambda p, t: JT.forward(p, jcfg, t))(jp,
+                                                       jnp.asarray(toks))
     with torch.no_grad():
         tl, _ = TT.forward(tp, tcfg, torch.tensor(toks))
     _close(tl, jl, LOGIT_TOL)
@@ -187,8 +192,8 @@ def test_lm_loss_and_grads_match_reference(arch, remat):
     jcfg, tcfg, jp, tp = _model(arch)
     toks = _tokens((2, 40), tcfg.vocab_size, 6)
     (jloss, jm), jgrads = _reference(("lm_loss", arch), lambda: (
-        jax.value_and_grad(lambda p: JT.lm_loss(
-            p, jcfg, {"tokens": jnp.asarray(toks)}), has_aux=True)(jp)))
+        jax.jit(jax.value_and_grad(lambda p: JT.lm_loss(
+            p, jcfg, {"tokens": jnp.asarray(toks)}), has_aux=True))(jp)))
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(tp)]
     loss, m = TT.lm_loss(tree.unflatten(tp, leaves), tcfg,
                          {"tokens": torch.tensor(toks)}, remat=remat)

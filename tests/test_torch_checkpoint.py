@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro import checkpoint as jckpt
 from repro.configs.paper_models import F1_MNIST, RESNET44_CIFAR10
 from repro.configs.registry import get_config as jget_config

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.base import LayerSpec as JLayerSpec
 from repro.configs.registry import get_config as jget_config
 from repro.kernels import ref as jref
@@ -345,11 +346,12 @@ def test_paged_decode_step_matches_reference(model, cache_dtype,
     jc = j_write_pt(jc, jnp.asarray(table))
     tc = convert.lm_to_torch(jax.device_get(jc), tcfg, CPU)
     toks = np.random.RandomState(1).randint(0, tcfg.vocab_size, (B, 6))
+    jstep = jax.jit(lambda p, tok, c, pos: JT.decode_step(
+        p, jcfg, tok, c, pos, use_kernels=use_kernels))
     for t in range(6):
         pos = np.array([t, t + 5], np.int32)
         tok = toks[:, t:t + 1].astype(np.int32)
-        jl, jc = JT.decode_step(jp, jcfg, jnp.asarray(tok), jc,
-                                jnp.asarray(pos), use_kernels=use_kernels)
+        jl, jc = jstep(jp, jnp.asarray(tok), jc, jnp.asarray(pos))
         tl, tc = TT.decode_step(tp, tcfg, torch.tensor(tok), tc,
                                 torch.tensor(pos), use_kernels=use_kernels)
         _close(tl, jl, TOL, TOL, msg=f"logits, step {t}")

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.kernels.flash_decode import (flash_decode_paged_pallas,
                                         flash_decode_pallas)
 from repro_torch.kernels import ref as tref

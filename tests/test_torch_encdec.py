@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.base import NormConfig as JNormConfig
 from repro.configs.registry import get_config as jget_config
 from repro.core import LargeBatchConfig as JLargeBatchConfig

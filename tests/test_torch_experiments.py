@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.paper_models import F1_MNIST as JF1
 from repro.core import large_batch as jlb
 from repro.core import regime as jregime
@@ -453,8 +454,9 @@ def test_killed_sweep_restarts_to_identical_records(tmp_path):
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
                                   "qwen2-moe-a2.7b"])
 def test_lm_runner_path(tmp_path, arch):
+    # three steps: the kill at step 2's checkpoint leaves one to resume
     kw = dict(lm_arch=arch, lm_seq_len=16, lm_n_tokens=4096,
-              lm_vocab_size=64, total_steps=4, drop_every=2, eval_every=2,
+              lm_vocab_size=64, total_steps=3, drop_every=2, eval_every=2,
               track_diffusion=False, weight_decay=0.0, use_kernels=True,
               lb=dict(batch_size=8, base_batch_size=8, lr_rule="none",
                       use_gbn=False, ghost_noise=0.5))
@@ -464,7 +466,7 @@ def test_lm_runner_path(tmp_path, arch):
     recs = trunner.run_sweep(sweep, str(tmp_path / "a"), checkpoint_every=2,
                              device=CPU)
     spec, = sweep.expand()
-    assert len(recs) == 1 and recs[0]["steps"] == 4
+    assert len(recs) == 1 and recs[0]["steps"] == 3
     assert np.isfinite(recs[0]["final_ce"])
     assert set(recs[0]["metrics"]) == {"eval_ce", "train_loss", "lr"}
     assert not os.path.exists(tmp_path / "a" / "lm" / "ckpt" / spec.run_id)

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.core import gbn as JG
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from test_torch_port import PORT_FILES
 from repro.configs.registry import get_config as jget_config
 from repro.core import DiffusionTracker as JDiffusionTracker

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import (flash_attention_backward_pallas,
                                            flash_attention_pallas,

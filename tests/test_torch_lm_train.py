@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.registry import get_config as jget_config
 from repro.core import LargeBatchConfig as JLargeBatchConfig
 from repro.core import Regime as JRegime

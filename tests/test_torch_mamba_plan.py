@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _mamba_plan_model import model_plan, owners
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.kernels.mamba_scan import (mamba_chunk_backward_pallas,
                                       mamba_chunk_pallas)
 from repro_torch.kernels import mamba_scan as MS

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.paper_models import (C1_CIFAR10, F1_MNIST,
                                         RESNET44_CIFAR10)
 from repro.models import cnn as jcnn

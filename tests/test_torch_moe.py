@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.base import LayerSpec as JLayerSpec
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.base import MoEConfig as JMoEConfig
@@ -394,6 +395,14 @@ def _cfgs(arch, **overrides):
 
 
 _MODELS = {}
+_REFERENCE = {}
+
+
+def _reference(key, fn):
+    """``fn()`` once per ``key``: a reference result the cases share."""
+    if key not in _REFERENCE:
+        _REFERENCE[key] = fn()
+    return _REFERENCE[key]
 
 
 def _model(arch):
@@ -452,7 +461,9 @@ def test_block_matches_reference(arch, use_kernels):
                                  jnp.asarray(x), positions=jnp.asarray(pos))
         return jnp.sum(y * w) + a["moe_aux"] + a["moe_z"], (y, a)
 
-    (jl, (jy, ja)), jg = jax.value_and_grad(jloss, has_aux=True)(jblock)
+    # the reference does not depend on use_kernels: once per arch
+    (jl, (jy, ja)), jg = _reference(("block", arch), lambda: jax.jit(
+        jax.value_and_grad(jloss, has_aux=True))(jblock))
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(tblock)]
     p = tree.unflatten(tblock, leaves)
     y, cache, a = TB.block_apply(p, tcfg, spec, torch.tensor(x),
@@ -478,8 +489,9 @@ def test_stack_output_and_aux_match_reference(arch, remat):
     jcfg, tcfg, jp, tp = _model(arch)
     x = _x((2, 16, tcfg.d_model), 8)
     pos = np.broadcast_to(np.arange(16), (2, 16))
-    jy, _, ja = JB.stack_apply(jp["stack"], jcfg, jnp.asarray(x),
-                               positions=jnp.asarray(pos), remat=remat)
+    jy, _, ja = jax.jit(lambda p, x_, pos_: JB.stack_apply(
+        p, jcfg, x_, positions=pos_, remat=remat))(
+            jp["stack"], jnp.asarray(x), jnp.asarray(pos))
     y, cache, a = TB.stack_apply(tp["stack"], tcfg, torch.tensor(x),
                                  positions=torch.tensor(pos), remat=remat)
     assert cache is None
@@ -496,9 +508,9 @@ def test_lm_loss_and_grads_match_reference(arch, remat):
     metrics and the gradients of every leaf."""
     jcfg, tcfg, jp, tp = _model(arch)
     tokens = _tokens((2, 32), tcfg.vocab_size, 1)
-    (jloss, jm), jgrads = jax.value_and_grad(
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
         lambda p: JT.lm_loss(p, jcfg, {"tokens": jnp.asarray(tokens)},
-                             remat=remat), has_aux=True)(jp)
+                             remat=remat), has_aux=True))(jp)
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(tp)]
     loss, m = TT.lm_loss(tree.unflatten(tp, leaves), tcfg,
                          {"tokens": torch.tensor(tokens)}, remat=remat)
@@ -537,12 +549,32 @@ def test_prefill_and_decode_route_and_match_reference(arch, use_kernels,
     joff = None if off is None else jnp.asarray(off)
     toff = None if off is None else torch.tensor(off)
     layout = "head" if use_kernels else "seq"
-    jc = JT.init_cache(jcfg, 3, total, dtype=jnp.float32, layout="seq")
+    nxt = [_tokens((3, 1), tcfg.vocab_size, s) for s in (2, 3)]
+    steps = (P, np.array([P + 1, P + 1, P + 1], np.int32))
+
+    def reference():
+        """The reference's prefill, then its two decode steps: (routing
+        log, logits) of each. It does not depend on use_kernels: once per
+        (arch, ragged)."""
+        jc = JT.init_cache(jcfg, 3, total, dtype=jnp.float32, layout="seq")
+        out = []
+        jlog = []
+        with _reference_routing(jlog):
+            jl, jc = JT.prefill_forward(jp, jcfg, jnp.asarray(toks), jc,
+                                        offsets=joff)
+        out.append((jlog, jl))
+        for pos, tok in zip(steps, nxt):
+            jlog = []
+            with _reference_routing(jlog):
+                jl, jc = JT.decode_step(jp, jcfg, jnp.asarray(tok), jc,
+                                        jnp.asarray(pos, jnp.int32),
+                                        offsets=joff)
+            out.append((jlog, jl))
+        return out
+
+    (jlog, jl), *jsteps = _reference(("route", arch, ragged), reference)
     tc = TT.init_cache(tcfg, 3, total, layout=layout, device=CPU)
-    jlog, tlog = [], []
-    with _reference_routing(jlog):
-        jl, jc = JT.prefill_forward(jp, jcfg, jnp.asarray(toks), jc,
-                                    offsets=joff)
+    tlog = []
     with _port_routing(tlog):
         tl, tc = TT.prefill_forward(tp, tcfg, torch.tensor(toks), tc,
                                     use_kernels=use_kernels,
@@ -551,23 +583,17 @@ def test_prefill_and_decode_route_and_match_reference(arch, use_kernels,
     assert len(tlog) == n_moe
     _check_routing(tlog, jlog, f"{arch} prefill")
     _close(tl, jl, LOGIT_TOL)
-    nxt = _tokens((3, 1), tcfg.vocab_size, 2)
-    for pos in (P, np.array([P + 1, P + 1, P + 1], np.int32)):
-        jlog, tlog = [], []
-        with _reference_routing(jlog):
-            jl, jc = JT.decode_step(jp, jcfg, jnp.asarray(nxt), jc,
-                                    jnp.asarray(pos, jnp.int32),
-                                    offsets=joff)
+    for pos, tok, (jlog, jl) in zip(steps, nxt, jsteps):
+        tlog = []
         tpos = pos if isinstance(pos, int) else torch.tensor(pos)
         with _port_routing(tlog):
-            tl, tc = TT.decode_step(tp, tcfg, torch.tensor(nxt), tc, tpos,
+            tl, tc = TT.decode_step(tp, tcfg, torch.tensor(tok), tc, tpos,
                                     use_kernels=use_kernels,
                                     offsets=toff)
         # decode folds the batch: one sequence of 3 tokens a layer
         assert all(r["topi"].shape[:2] == (1, 3) for r in tlog)
         _check_routing(tlog, jlog, f"{arch} decode")
         _close(tl, jl, LOGIT_TOL)
-        nxt = _tokens((3, 1), tcfg.vocab_size, 3)
 
 
 GEN_CASES = [(False, False, 1.25), (True, False, 1.25), (False, True, 1.25),

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.kernels.fused_norm import (rmsnorm_residual_backward_pallas,
                                       rmsnorm_residual_pallas)
 from repro_torch.kernels import fused_norm as FN

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.core import diffusion as jdiff
 from repro.core import large_batch as jlb
 from repro.core import lr_scaling as jlr

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import _torch_parallel_workers as W
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.checkpoint import checkpoint as jckpt
 from repro.configs.paper_models import RESNET44_CIFAR10
 from repro.configs.registry import get_config as jget_config

@@ -20,6 +20,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.registry import get_config as jget_config
 from repro.core import LargeBatchConfig as JLB
 from repro.launch import mesh as jmesh

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _mamba_plan_model import model_plan, owners
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro_torch import tree
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
@@ -718,14 +719,17 @@ def test_cuda_flash_decode_paged_rejects_what_the_kernel_does_not_take():
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,itemsize,slots", [
     (32, 2, 64), (64, 2, 64), (128, 2, 32), (256, 2, 16), (32, 4, 64),
-    (128, 4, 16), (256, 4, 8), (128, 1, 64), (256, 1, 32)])
+    (128, 4, 16), (256, 4, 8), (128, 1, 64), (256, 1, 32), (112, 2, 32),
+    (120, 2, 32), (120, 4, 16), (120, 1, 64)])
 def test_cuda_chunk_slots_follow_width_and_element_size_only(hd, itemsize,
                                                              slots):
     """The kernels' chunk (which the edge tests and chip_smoke take their
-    positions from): 64 slots, fewer where 64 keys would pass 8 KB."""
+    positions from): 64 slots, fewer where 64 keys would pass 8 KB, a
+    power of two."""
     _on_card()
     assert FD.chunk_slots(hd, itemsize) == slots
     assert slots * hd * itemsize <= 8192 or slots == 64
+    assert slots & (slots - 1) == 0
     with pytest.raises(ValueError):
         FD.chunk_slots(48, itemsize)
 
@@ -744,7 +748,7 @@ def _pool(kp, vp, pool):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 112, 120, 128, 256])
 @pytest.mark.parametrize("qdt,pool", POOL_TYPES)
 def test_cuda_flash_decode_chunk_boundaries_match_plain(qdt, pool, hd):
     """Rows at positions CHUNK - 1, CHUNK, CHUNK + 1 and 2 CHUNK (the
@@ -1036,6 +1040,8 @@ ATTN_TRAIN_CASES = [
     ((2, 16, 8, 130, 128), True, None),
     ((1, 8, 2, 100, 64), True, None),
     ((2, 2, 1, 70, 256), True, 9),
+    ((2, 4, 1, 100, 120), True, 13),
+    ((1, 8, 2, 130, 112), False, None),
 ]
 ATTN_BWD_CASES = [c for c in ATTN_TRAIN_CASES
                   if c[0][-1] in FA.BWD_HEAD_DIMS]

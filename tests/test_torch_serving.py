@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.registry import get_config as jget_config
 from repro.models import transformer as JT
 from repro.serving import generate as jgenerate

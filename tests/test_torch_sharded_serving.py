@@ -35,6 +35,7 @@ import torch
 from jax.sharding import PartitionSpec as JP
 
 import _torch_serving_workers as W
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.base import LayerSpec as JLayerSpec
 from repro.configs.registry import get_config as jget_config
 from repro.models import transformer as JT

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.configs.registry import get_config as jget_config
 from repro.core import LargeBatchConfig as JLargeBatchConfig
 from repro.core import Regime as JRegime
@@ -56,6 +57,17 @@ ARCH = "falcon-mamba-7b"
 def _cfgs():
     return (dataclasses.replace(jget_config(ARCH).reduced(), dtype="float32"),
             dataclasses.replace(get_config(ARCH).reduced(), dtype="float32"))
+
+
+_REFERENCE = {}
+
+
+def _reference(key, fn):
+    """``fn()`` once per ``key``: a reference result the cases share (it
+    does not depend on the port's ``use_kernels``)."""
+    if key not in _REFERENCE:
+        _REFERENCE[key] = fn()
+    return _REFERENCE[key]
 
 
 @pytest.fixture(scope="module")
@@ -164,7 +176,9 @@ def test_ssm_forward_matches_reference(model, use_kernels, S, chunk):
     jcfg, tcfg, _, _ = model
     jm, tm = _mixer(model)
     x = _x(2, S, tcfg.d_model, S)
-    want = JSSM.ssm_forward(jm, jcfg, jnp.asarray(x), chunk=chunk)
+    want = _reference(("ssm_forward", S, chunk), lambda: jax.jit(
+        lambda m, x_: JSSM.ssm_forward(m, jcfg, x_, chunk=chunk))(
+            jm, jnp.asarray(x)))
     got = TSSM.ssm_forward(tm, tcfg, torch.tensor(x), chunk=chunk,
                            use_kernels=use_kernels)
     assert got.shape == (2, S, tcfg.d_model)
@@ -378,9 +392,9 @@ def test_lm_loss_and_grads_match_reference(model, use_kernels):
     reference's loss (its plain path)."""
     jcfg, tcfg, jp, tp = model
     tokens = _tokens((B_, S_), tcfg.vocab_size, 1)
-    (jloss, _), jgrads = jax.value_and_grad(
-        lambda p: JT.lm_loss(p, jcfg, {"tokens": jnp.asarray(tokens)}),
-        has_aux=True)(jp)
+    (jloss, _), jgrads = _reference("lm_loss", lambda: jax.jit(
+        jax.value_and_grad(lambda p: JT.lm_loss(
+            p, jcfg, {"tokens": jnp.asarray(tokens)}), has_aux=True))(jp))
     MS.reset_launches()
     loss, _, grads = _loss_and_grads(tp, tcfg, tokens,
                                      use_kernels=use_kernels)
@@ -400,9 +414,10 @@ def test_lm_train_step_matches_reference(model, use_kernels):
     lb = LargeBatchConfig(batch_size=B_, base_batch_size=B_, grad_clip=1.0)
     jreg = JRegime(base_lr=0.01, total_steps=10, drop_every=10)
     reg = Regime(base_lr=0.01, total_steps=10, drop_every=10)
-    jstep = jax.jit(jmake_lm_train_step(jcfg, jlb, jreg))
-    jp2, jopt2, jm = jstep(jp, jsgd.init(jp), {"tokens": jnp.asarray(tokens)},
-                           jnp.int32(0), jax.random.PRNGKey(2))
+    jp2, jopt2, jm = _reference("train_step", lambda: jax.jit(
+        jmake_lm_train_step(jcfg, jlb, jreg))(
+            jp, jsgd.init(jp), {"tokens": jnp.asarray(tokens)}, jnp.int32(0),
+            jax.random.PRNGKey(2)))
     outs = []
     for remat in (False, True):
         step = TR.make_lm_train_step(tcfg, lb, reg, use_kernels=use_kernels,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import cpu_share  # noqa: F401 (autouse)
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.mamba_scan import (mamba_chunk_backward_pallas,
